@@ -1,0 +1,65 @@
+"""Packaging contract of the port: no JAX at run time, the kernel source
+ships under csrc/, and the kernel builds for sm_90a into an ignored
+directory."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import timecrystal_tpu_torch
+from timecrystal_tpu_torch.ops import cuda_build
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port, in a fresh interpreter, pulls in
+    neither jax nor the JAX package (it must run where JAX is absent)."""
+    code = """
+import importlib, pkgutil, sys
+import timecrystal_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "timecrystal_tpu"))
+print(len(names), bad)
+assert len(names) >= 12, names
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_sets_full_precision_matmuls():
+    import torch
+
+    assert timecrystal_tpu_torch.__version__
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_kernel_source_ships_under_csrc():
+    src = cuda_build.CSRC_DIR / "jacobi_sweep.cu"
+    assert src.is_file()
+    text = src.read_text()
+    assert 'extern "C" int tct_jacobi_sweep_c64' in text
+    assert 'extern "C" int tct_jacobi_sweep_c128' in text
+    assert "cudaGetLastError" in text
+    assert "csrc/*.cu" in (REPO / "pyproject.toml").read_text()
+
+
+def test_build_command_targets_sm90a_into_an_ignored_directory():
+    out = cuda_build.library_path("jacobi_sweep")
+    cmd = cuda_build.nvcc_command(cuda_build.CSRC_DIR / "jacobi_sweep.cu", out)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and out.parent == cuda_build.BUILD_DIR
+    rel = cuda_build.BUILD_DIR.relative_to(REPO).as_posix() + "/"
+    ignored = [line.strip() for line in
+               (REPO / ".gitignore").read_text().splitlines()]
+    assert rel in ignored, (rel, ignored)
+    # the library name tracks the source: an edited kernel is rebuilt
+    assert out.name.startswith("jacobi_sweep-") and out.suffix == ".so"

@@ -1,0 +1,217 @@
+"""Floquet kicked-Ising model.
+
+Port of ``timecrystal_tpu/models/kicked_ising.py``.  One period is
+
+    U_F = exp[-i tau/2 sum_j (J sz_j sz_{j+1} + h_j sz_j)]
+        x exp[-i theta/2 sum_j sx_j]
+        x exp[-i tau/2 sum_j (J sz_j sz_{j+1} + h_j sz_j)]
+
+with the reference's quirks kept on purpose (MIGRATION.md): every bond gate
+carries the full h_i and h_{i+1} (interior sites see 2 h_i per half-step),
+even bonds are applied before odd ones, the exact pi-pulse is -i sigma_x,
+and seeded disorder comes from numpy's legacy MT19937 stream.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core import gates as G
+from ..core.mps import MPS, apply_one_site_gates
+from ..core.truncate import (TruncParams, apply_bond_gates,
+                             apply_single_bond_gate, swap_gate)
+
+
+def _tp_from(trunc_params: dict | TruncParams | None) -> TruncParams:
+    """TruncParams from the reference-parity argument forms; a partial dict
+    keeps the reference defaults (chi_max=100, trunc_cut=1e-10)."""
+    if isinstance(trunc_params, TruncParams):
+        return trunc_params
+    if trunc_params is None:
+        return TruncParams(chi_max=100, svd_min=1e-12, trunc_cut=1e-10)
+    d = dict(trunc_params)
+    d.setdefault("chi_max", 100)
+    d.setdefault("trunc_cut", 1e-10)
+    return TruncParams.from_dict(d)
+
+
+@dataclass(frozen=True)
+class FloquetGates:
+    """Per-period gate set.  Leading axes of ``bond_gates`` and
+    ``boundary_gate`` (if any) are ensemble axes."""
+
+    bond_gates: torch.Tensor                    # [..., L-1, d, d, d, d]
+    kick: torch.Tensor                          # [d, d]
+    # periodic-BC boundary gate [..., d, d, d, d] for the SWAPPED layout
+    # (left = site 0's field, right = site L-1's field); None when open
+    boundary_gate: torch.Tensor | None = None
+
+
+def make_floquet_gates(J, h_fields: torch.Tensor, tau, theta=np.pi,
+                       dtype=torch.complex64, bc: str = "open") -> FloquetGates:
+    """Analytic Floquet gates from the fields ``h_fields`` [..., L] (real
+    tensor; its device is the gates' device).  ``tau`` is a float or a
+    tensor over the leading axes.  Angles are computed in the fields'
+    dtype, then cast to the real dtype of ``dtype``."""
+    device = h_fields.device
+    tau_half = (tau / 2.0 if not torch.is_tensor(tau)
+                else tau.to(h_fields.dtype) / 2.0)
+    angles = G.ising_bond_phase_angles(J, h_fields, tau_half)
+    bond_gates = G.phases_to_bond_gates(angles, dtype=dtype)
+    if float(theta) == float(np.pi):
+        kick = G.pi_pulse_gate(dtype=dtype, device=device)
+    else:
+        kick = G.x_rotation_gate(theta, dtype=dtype, device=device)
+    boundary = None
+    if bc == "periodic":
+        hb = torch.stack([h_fields[..., 0], h_fields[..., -1]], -1)
+        b_angles = G.ising_bond_phase_angles(J, hb, tau_half)
+        boundary = G.phases_to_bond_gates(b_angles, dtype=dtype)[..., 0, :, :, :, :]
+    return FloquetGates(bond_gates=bond_gates, kick=kick,
+                        boundary_gate=boundary)
+
+
+def floquet_period(psi: MPS, gates: FloquetGates, tp: TruncParams):
+    """One full Floquet period: Ising half-step (even bonds, then odd), the
+    kick on every site, the Ising half-step again; periodic chains add the
+    boundary bond once per half-step.  Returns (psi, truncation error)."""
+    psi, e1 = apply_bond_gates(psi, gates.bond_gates, 0, tp)
+    psi, e2 = apply_bond_gates(psi, gates.bond_gates, 1, tp)
+    eb1 = eb2 = 0.0
+    if gates.boundary_gate is not None:
+        psi, eb1 = apply_boundary_gate_periodic(psi, gates.boundary_gate, tp)
+    psi = apply_one_site_gates(psi, gates.kick)
+    psi, e3 = apply_bond_gates(psi, gates.bond_gates, 0, tp)
+    psi, e4 = apply_bond_gates(psi, gates.bond_gates, 1, tp)
+    if gates.boundary_gate is not None:
+        psi, eb2 = apply_boundary_gate_periodic(psi, gates.boundary_gate, tp)
+    return psi, e1 + e2 + e3 + e4 + eb1 + eb2
+
+
+def _square_diagonal_gates(g: torch.Tensor) -> torch.Tensor:
+    """Elementwise square of the diagonal Ising bond gates: the half-step
+    phases exp(-i tau/2 H_b) become the full step exp(-i tau H_b)."""
+    return g * g
+
+
+def ising_half_step(psi: MPS, gates: FloquetGates, tp: TruncParams):
+    """H = exp(-i tau/2 sum_b H_b) alone (even bonds then odd, plus the
+    boundary bond for periodic chains)."""
+    psi, e1 = apply_bond_gates(psi, gates.bond_gates, 0, tp)
+    psi, e2 = apply_bond_gates(psi, gates.bond_gates, 1, tp)
+    err = e1 + e2
+    if gates.boundary_gate is not None:
+        psi, eb = apply_boundary_gate_periodic(psi, gates.boundary_gate, tp)
+        err = err + eb
+    return psi, err
+
+
+def ising_half_step_inverse(psi: MPS, gates: FloquetGates, tp: TruncParams):
+    """H^{-1} = H^dagger: the conjugated diagonal phase gates."""
+    inv = gates.bond_gates.conj()
+    psi, e1 = apply_bond_gates(psi, inv, 0, tp)
+    psi, e2 = apply_bond_gates(psi, inv, 1, tp)
+    err = e1 + e2
+    if gates.boundary_gate is not None:
+        psi, eb = apply_boundary_gate_periodic(psi, gates.boundary_gate.conj(), tp)
+        err = err + eb
+    return psi, err
+
+
+def floquet_period_merged(phi: MPS, gates: FloquetGates, tp: TruncParams):
+    """One Floquet period in the half-step frame phi = H psi: H^2 K, one
+    Ising sweep per period instead of two.  sz, magnetizations and the
+    Loschmidt echo are exact in this frame (H is z-diagonal); entropies and
+    bond dimensions are those of the half-step-shifted state.  Valid only
+    for diagonal bond gates."""
+    full_bonds = _square_diagonal_gates(gates.bond_gates)
+    phi = apply_one_site_gates(phi, gates.kick)
+    phi, e1 = apply_bond_gates(phi, full_bonds, 0, tp)
+    phi, e2 = apply_bond_gates(phi, full_bonds, 1, tp)
+    err = e1 + e2
+    if gates.boundary_gate is not None:
+        full_b = _square_diagonal_gates(gates.boundary_gate)
+        phi, eb = apply_boundary_gate_periodic(phi, full_b, tp)
+        err = err + eb
+    return phi, err
+
+
+def apply_boundary_gate_periodic(psi: MPS, boundary_gate: torch.Tensor,
+                                 tp: TruncParams):
+    """The (L-1, 0) bond of a periodic chain by a swap network: swap site 0
+    to position L-2, apply the gate at the last bond, swap back.  Returns
+    (psi, summed discarded weight)."""
+    L = psi.L
+    if L <= 2:
+        return apply_single_bond_gate(psi, boundary_gate, 0, tp)
+    sw = swap_gate(psi.d, psi.dtype, psi.device)
+    disc = psi.lam.new_zeros(psi.lead)
+    for b in range(0, L - 2):            # site 0 -> position L-2
+        psi, e = apply_single_bond_gate(psi, sw, b, tp)
+        disc = disc + e
+    psi, e = apply_single_bond_gate(psi, boundary_gate, L - 2, tp)
+    disc = disc + e
+    for b in range(L - 3, -1, -1):       # swap back
+        psi, e = apply_single_bond_gate(psi, sw, b, tp)
+        disc = disc + e
+    return psi, disc
+
+
+def draw_disorder_reference(n_sites: int, h_disorder: float,
+                            disorder_seed: int | None) -> np.ndarray:
+    """Disorder fields with the reference's RNG, bit for bit (numpy legacy
+    MT19937: np.random.seed(seed); np.random.uniform)."""
+    if disorder_seed is not None:
+        np.random.seed(disorder_seed)
+    return np.random.uniform(-h_disorder, h_disorder, n_sites)
+
+
+def draw_disorder_batch(generator: torch.Generator, n_realizations: int,
+                        n_sites: int, h_disorder: float,
+                        dtype=torch.float64) -> torch.Tensor:
+    """Disorder batch [R, L] ~ U[-h, h] from an explicit torch.Generator
+    (on the generator's device).  The JAX package draws this batch from
+    ``jax.random``; the two streams differ, so parity runs pass the same
+    fields to both packages explicitly."""
+    u = torch.rand((n_realizations, n_sites), generator=generator,
+                   dtype=dtype, device=generator.device)
+    return (2.0 * u - 1.0) * h_disorder
+
+
+class KickedIsingModel:
+    """Floquet kicked-Ising model: parameters plus the precomputed gates."""
+
+    def __init__(self, n_sites: int, J: float, h_disorder: float, tau: float,
+                 bc: str = "open", disorder_seed: int | None = None,
+                 h_fields: np.ndarray | None = None, theta: float = np.pi,
+                 chi: int = 64, dtype=torch.complex64, device="cpu"):
+        if bc not in ("open", "periodic"):
+            raise ValueError(f"Unknown boundary condition: {bc}")
+        self.n_sites = int(n_sites)
+        self.J = float(J)
+        self.h_disorder = float(h_disorder)
+        self.tau = float(tau)
+        self.bc = bc
+        self.theta = float(theta)
+        self.chi = int(chi)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        if h_fields is not None:
+            self.h_fields = np.asarray(h_fields, dtype=np.float64)
+        else:
+            self.h_fields = draw_disorder_reference(n_sites, h_disorder,
+                                                    disorder_seed)
+        h = torch.as_tensor(self.h_fields, dtype=torch.float64,
+                            device=self.device)
+        self.gates = make_floquet_gates(self.J, h, self.tau, theta=self.theta,
+                                        dtype=dtype, bc=bc)
+        self.boundary_gate = self.gates.boundary_gate
+
+    def floquet_step(self, psi: MPS,
+                     trunc_params: dict | TruncParams | None = None) -> MPS:
+        """One Floquet period (periodic chains include the boundary bond)."""
+        psi_new, _ = floquet_period(psi, self.gates, _tp_from(trunc_params))
+        return psi_new
