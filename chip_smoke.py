@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (cuda:0), nvcc, and the repository checkout around
-it; it imports only the port, torch and numpy.  Phases:
+it; it imports only the port, torch, numpy and the numpy-only dense oracle
+tests/exact_reference.py.  Phases:
 
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: the Jacobi sweep kernel from timecrystal_tpu_torch/csrc/ (sm_90a);
-  3. kernel checks: jacobi_sv on complex64 [4, 512, 512] against LAPACK,
-     the kernel against its torch twin (float64 one sweep and full calls;
-     float32 at every width of the chi ladder), with times per call;
-  4. tests/golden/entangling_L10.npz through CustomFloquet on the GPU;
-  5. the real size: the chi-staged ensemble window of bench.py's CONFIG
-     (L=40, chi cap 256, R=16, 20 merged periods), then 3 fixed chi=256
-     merged periods of one chain (the kernel at n=512).
+  2. build: both Jacobi sweep kernels from timecrystal_tpu_torch/csrc/
+     (one source, sm_90a);
+  3. kernel 1 (V-free sweep) checks: jacobi_sv on complex64 [4, 512, 512]
+     against LAPACK, the kernel against its torch twin (float64 one sweep
+     and full calls; float32 at every width of the chi ladder), with times
+     per call and one sweep beside its bound and torch.linalg.svd;
+  4. kernel 2 (V-accumulating sweep) checks: jacobi_svd on the same input
+     against LAPACK, the kernel against its twin (float64 one sweep;
+     float32 full calls at the TDVP, tall, wide, odd and n=2 shapes), one
+     sweep timed beside its bound and torch.linalg.svd;
+  5. tests/golden/entangling_L10.npz through CustomFloquet on the GPU;
+  6. the TEBD path at the real size: the chi-staged ensemble window of
+     bench.py's CONFIG (L=40, chi cap 256, R=16, 20 merged periods), then 3
+     fixed chi=256 merged periods of one chain (kernel 1 at n=512);
+  7. the long-range TDVP path against the dense oracle (L=10, chi=32, 10
+     periods, theta = pi and the entangling 0.92 pi, the latter also against
+     a complex128 CPU run of the same TDVP), then at the interaction-range diagram's widths (L=12,
+     chi=48, 24 periods, alpha in {1.5, None}; kernel 2 at n=96), with a
+     profile of its time.
 
 Any failed check raises, so the exit code is not 0.  The last two lines are
-a JSON summary of the kernel and the device JSON.
+a JSON summary of both kernels and the device JSON.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +48,13 @@ GOLDEN = REPO / "tests" / "golden" / "entangling_L10.npz"
 LADDER = (64, 96, 144, 216, 328, 496, 512)   # n = 2 chi, chi 32 -> 256 x1.5
 CONFIG = dict(L=40, chi=256, theta_frac=0.9, h=0.3, tau=1.0, seed=42, R=16,
               n_periods=20, chi_start=32, chunk=5, growth=1.5, svd_min=1e-7)
+# the interaction-range diagram (main.py --range-diagram with config.txt:
+# J=1, T_DRIVE=2 -> tau=1, H_MAX=0.3, seed 42) at its eps=0.05 curve
+RANGE = dict(L=12, chi=48, n_periods=24, substeps=2, J=1.0, h=0.3, tau=1.0,
+             theta_frac=0.95, seed=42, alphas=(1.5, None))
+# the card's peaks (H100 SXM data sheet): HBM bytes/s, float32 and float64
+# FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
 
 
 def _check(cond: bool, what: str) -> None:
@@ -54,6 +74,51 @@ def _timed(fn, reps: int = 1):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return out, float(np.median(times))
+
+
+def sweep_bound(B: int, n: int, m: int, with_v: bool, itemsize: int = 8):
+    """(bound_ms, bound_by, fp64_ms) of ONE sweep over B matrices of n rows
+    of length m (with the n x n V rows when with_v): the larger of the
+    bytes moved once (X and V read and written, the schedule read, the
+    measure written) over the memory rate and the FLOPs -- (n-1)(n/2)
+    pairs; per element of a row pair, 8 for the overlap conj(u) v and 20
+    for the rotation (each of u' = cs u - w1 v and v' = w2 u + cs v is a
+    real x complex product, a complex product and a complex add: 2 + 6 + 2),
+    and 20 per element of the two V rows -- over the float32 peak (the
+    inputs' type).  fp64_ms is the FLOP time at the float64 peak, the
+    arithmetic the kernels do."""
+    flops = B * (n - 1) * (n // 2) * (28 * m + (20 * n if with_v else 0))
+    nbytes = (2 * B * n * m * itemsize + (2 * B * n * n * itemsize if with_v
+                                          else 0) + (n - 1) * n * 4 + 8 * B)
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops / PEAK_F64 * 1e3)
+
+
+def _event_ms(fn, args_list):
+    """Mean ms per call of fn(*args) over args_list, CUDA events, after one
+    warm-up call."""
+    import torch
+
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for args in args_list[1:]:
+        fn(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (len(args_list) - 1)
+
+
+def _library_ms(M):
+    """torch.linalg.svd of the batch M: the yardstick of a sweep kernel (the
+    port never calls it on these paths)."""
+    import torch
+
+    return _event_ms(lambda x: torch.linalg.svd(x, full_matrices=False),
+                     [(M,)] * 4)
 
 
 def _tebd_like(gen, B: int, n: int, dtype):
@@ -93,11 +158,20 @@ def phase_build():
 
     t0 = time.perf_counter()
     _, info = load_kernel_library("jacobi_sweep")
-    ptxas = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
+    # pair each kernel instantiation (jacobi_sweep_kernel<T, kWithV>) with its
+    # ptxas register line
+    ptxas, label = [], None
+    for ln in info.log.splitlines():
+        if "Compiling entry function" in ln:
+            t = "f32" if "kernelIfL" in ln else "f64"
+            label = ("jacobi_sweep_v" if "Lb1E" in ln else "jacobi_sweep") + f"<{t}>"
+        elif "registers" in ln and label:
+            ptxas.append(f"{label}: {ln.split(':', 1)[1].strip()}")
     print(f"[build] {info.path.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {info.seconds:.1f} s): {' '.join(info.command[1:4])}; "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
     _check("arch=compute_90a,code=sm_90a" in info.command, "not built for sm_90a")
+    _check(info.seconds == 0.0 or len(ptxas) == 4, "expected 4 kernel instantiations")
 
 
 def phase_kernels():
@@ -189,26 +263,137 @@ def phase_kernels():
         del th
 
     # (d) one sweep, CUDA events: the window's first stage [320, 64, 64]
-    # (the "ms" of the summary) and the single-chain n=512 leg [20, 512, 512]
+    # (the "ms" of the summary) and the single-chain n=512 leg [20, 512, 512],
+    # beside the sweep's bound and one torch.linalg.svd of the same batch
     ms = {}
     for B, n in ((320, 64), (20, 512)):
-        X = _tebd_like(gen, B, n, torch.complex64).conj().resolve_conj().contiguous()
+        th = _tebd_like(gen, B, n, torch.complex64)
+        X = th.conj().resolve_conj().contiguous()
         for name, fn in (("kernel", J._jacobi_sweep_cuda),
                          ("twin", J._jacobi_sweep_torch)):
-            fn(X.clone())
-            Xs = [X.clone() for _ in range(5)]
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for x in Xs:
-                fn(x)
-            t1.record()
-            torch.cuda.synchronize()
-            ms[(name, B, n)] = t0.elapsed_time(t1) / len(Xs)
+            ms[(name, B, n)] = _event_ms(fn, [(X.clone(),) for _ in range(6)])
+        ms[("library", B, n)] = _library_ms(th)
+        bound, by, f64 = sweep_bound(B, n, n, with_v=False)
+        ms[("bound", B, n)] = (bound, by)
         print(f"[sweep time] one sweep, complex64 [{B}, {n}, {n}]: kernel "
-              f"{ms[('kernel', B, n)]:.3f} ms, twin {ms[('twin', B, n)]:.3f} ms",
-              flush=True)
-    return worst, ms[("kernel", 320, 64)], ms[("twin", 320, 64)]
+              f"{ms[('kernel', B, n)]:.3f} ms, twin {ms[('twin', B, n)]:.3f} ms, "
+              f"bound {bound:.4f} ms ({by}; FP64 FLOPs {f64:.4f} ms), "
+              f"torch.linalg.svd {ms[('library', B, n)]:.3f} ms", flush=True)
+    return dict(max_abs_err=worst, ms=ms[("kernel", 320, 64)],
+                plain_ms=ms[("twin", 320, 64)], bound_ms=ms[("bound", 320, 64)][0],
+                bound_by=ms[("bound", 320, 64)][1],
+                library_ms=ms[("library", 320, 64)])
+
+
+def _usv_rel(U, S, Vh, M):
+    """||U diag(S) Vh - M||_F / ||M||_F in float64."""
+    import torch
+
+    U, Vh, M = (x.to(torch.complex128) for x in (U, Vh, M))
+    rec = (U * S.to(torch.float64)[..., None, :].to(U.dtype)) @ Vh
+    return float(torch.linalg.norm(rec - M) / torch.linalg.norm(M))
+
+
+def phase_v_kernels():
+    """Kernel 2, the V-accumulating sweep, through jacobi_svd."""
+    import torch
+
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    # (a) LAPACK acceptance on the input of kernel 1's: S, the orthonormality
+    # of V, and the reconstruction
+    rng = np.random.RandomState(7)
+    B, n = 4, 512
+    M = np.zeros((B, n, n), np.complex64)
+    for i in range(B):
+        q1, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
+        q2, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
+        M[i] = (q1 * np.logspace(0, -7, n)) @ q2.conj().T
+    Mt = torch.as_tensor(M, device="cuda")
+    launches0, calls0 = J.V_KERNEL_LAUNCHES, J.CUDA_SVD_CALLS
+    U, S, Vh = J.jacobi_svd(Mt)
+    sweeps = J.V_KERNEL_LAUNCHES - launches0
+    _check(sweeps > 0 and J.CUDA_SVD_CALLS == calls0 + 1,
+           "jacobi_svd on a CUDA tensor did not launch kernel 2")
+    Sref = np.linalg.svd(M.astype(np.complex128), compute_uv=False)
+    serr = float(np.max(np.abs(S.cpu().numpy() - Sref)) / Sref.max())
+    _, St, _ = J.jacobi_svd_plain(Mt)
+    serr_twin = float(np.max(np.abs(St.cpu().numpy() - Sref)) / Sref.max())
+    Vh64 = Vh.to(torch.complex128)
+    eye = torch.eye(n, dtype=torch.complex128, device="cuda")
+    orth = float((Vh64 @ Vh64.mH - eye).abs().max())
+    rec = _usv_rel(U, S, Vh, Mt)
+    print(f"[v-kernel-vs-lapack] complex64 [4, 512, 512] logspace(0,-7): "
+          f"S err {serr:.3e} x sigma_max (< 5e-5), max |V^H V - I| "
+          f"{orth:.2e} (< 5e-5), |U S Vh - M|/|M| {rec:.2e} (< 1e-4), "
+          f"{sweeps} sweeps; the twin's S err {serr_twin:.3e}", flush=True)
+    _check(serr < 5e-5, f"kernel 2 S error {serr} vs LAPACK")
+    _check(orth < 5e-5, f"kernel 2 V not orthonormal: {orth}")
+    _check(rec < 1e-4, f"kernel 2 reconstruction {rec}")
+    del U, S, Vh, Vh64, Mt
+
+    # (b) float64, one sweep on a rectangular panel: rows (n=96, unit norm on
+    # average, so the absolute bound is a relative one) and V
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    X = torch.randn(4, 96, 80, dtype=torch.complex128, device="cuda",
+                    generator=gen) / np.sqrt(80)
+    W = torch.eye(96, dtype=torch.complex128, device="cuda").expand(
+        4, 96, 96).contiguous()
+    Xk, Wk, mk = J._jacobi_sweep_v_cuda(X.clone(), W.clone())
+    Xt, Wt, mt = J._jacobi_sweep_v_torch(X.clone(), W.clone())
+    dX, dW = float((Xk - Xt).abs().max()), float((Wk - Wt).abs().max())
+    meas_rel = float(((mk - mt).abs() / mt.abs().clamp_min(1e-300)).max())
+    print(f"[v-kernel-vs-twin f64] one sweep X [4, 96, 80] (unit rows), W [4, 96, 96]: "
+          f"max |dX| {dX:.2e}, max |dW| {dW:.2e} (< 1e-12), measure rel "
+          f"{meas_rel:.2e}", flush=True)
+    _check(dX < 1e-12 and dW < 1e-12, f"f64 V sweep differs: {dX} {dW}")
+    _check(meas_rel < 1e-9, f"f64 V sweep measure differs: {meas_rel}")
+
+    # (c) float32 full calls run to convergence, kernel against twin, by S and
+    # by the U S Vh reconstruction
+    worst = 0.0
+    for shape in ((1, 96, 96), (1, 128, 128), (2, 96, 64), (2, 64, 96),
+                  (2, 96, 95), (4, 5, 2)):
+        M = torch.randn(*shape, dtype=torch.complex64, device="cuda",
+                        generator=gen)
+        l0 = J.V_KERNEL_LAUNCHES
+        Uk, Sk, Vhk = J.jacobi_svd(M, n_sweeps=24)
+        sw = J.V_KERNEL_LAUNCHES - l0
+        Ut, St, Vht = J.jacobi_svd_plain(M, n_sweeps=24)
+        err = float((Sk - St).abs().max() / St.max())
+        worst = max(worst, float((Sk - St).abs().max()))
+        rec_k, rec_t = _usv_rel(Uk, Sk, Vhk, M), _usv_rel(Ut, St, Vht, M)
+        print(f"[v-kernel-vs-twin f32] {list(shape)}: S err {err:.2e} x "
+              f"sigma_max (< 1e-5), |U S Vh - M|/|M| kernel {rec_k:.2e}, twin "
+              f"{rec_t:.2e} (< 1e-5), {sw} sweeps", flush=True)
+        _check(err < 1e-5, f"f32 kernel-2 S at {shape} differs: {err}")
+        _check(rec_k < 1e-5 and rec_t < 1e-5, f"f32 USVh at {shape}")
+        _check(sw > 0 or shape[-1] == 2, f"kernel 2 not launched at {shape}")
+
+    # (d) one sweep, CUDA events: TDVP's call [1, 96, 96] (the summary's "ms")
+    # and a batch that fills the card [320, 64, 64]
+    ms = {}
+    for B, n in ((1, 96), (320, 64)):
+        M = torch.randn(B, n, n, dtype=torch.complex64, device="cuda",
+                        generator=gen)
+        X = M.transpose(-1, -2).contiguous()
+        W = torch.eye(n, dtype=M.dtype, device="cuda").expand(B, n, n).contiguous()
+        for name, fn in (("kernel", J._jacobi_sweep_v_cuda),
+                         ("twin", J._jacobi_sweep_v_torch)):
+            ms[(name, B, n)] = _event_ms(
+                fn, [(X.clone(), W.clone()) for _ in range(6)])
+        ms[("library", B, n)] = _library_ms(M)
+        bound, by, f64 = sweep_bound(B, n, n, with_v=True)
+        ms[("bound", B, n)] = (bound, by)
+        print(f"[sweep time] kernel 2, one sweep, complex64 [{B}, {n}, {n}]: "
+              f"kernel {ms[('kernel', B, n)]:.4f} ms, twin "
+              f"{ms[('twin', B, n)]:.3f} ms, bound {bound:.5f} ms ({by}; FP64 "
+              f"FLOPs {f64:.5f} ms), torch.linalg.svd "
+              f"{ms[('library', B, n)]:.3f} ms", flush=True)
+    return dict(max_abs_err=worst, ms=ms[("kernel", 1, 96)],
+                plain_ms=ms[("twin", 1, 96)], bound_ms=ms[("bound", 1, 96)][0],
+                bound_by=ms[("bound", 1, 96)][1],
+                library_ms=ms[("library", 1, 96)])
 
 
 def phase_golden():
@@ -311,6 +496,224 @@ def phase_real_size():
     return J.KERNEL_LAUNCHES
 
 
+def _oracle_traces(oracle, L, couplings, h_fields, tau, theta, n):
+    """sz [n+1, L] and LE [n+1] of the dense oracle from the Neel state."""
+    U = oracle.long_range_floquet_unitary(L, couplings, h_fields, tau,
+                                          theta=theta)
+    psi = oracle.product_statevector(oracle.neel_indices(L))
+    psi_0 = psi.copy()
+    sz, le = [oracle.sz_expectations(psi, L)], [1.0]
+    for _ in range(n):
+        psi = U @ psi
+        sz.append(oracle.sz_expectations(psi, L))
+        le.append(abs(np.vdot(psi_0, psi)) ** 2)
+    return np.asarray(sz), np.asarray(le)
+
+
+def _trace_err(tr, sz, le):
+    return (float(np.max(np.abs(tr["sz_sites"] - sz))),
+            float(np.max(np.abs(tr["loschmidt_echo"] - le))))
+
+
+def phase_tdvp_oracle():
+    """LongRangeKickedIsing in complex64 on the card against the dense
+    oracle on the fitted couplings (tests/test_long_range.py's check, at
+    L=10 and full rank), for the exact pi kick and for theta = 0.92 pi.
+
+    The pi kick keeps the Neel state a product state (rank-1 thetas, one
+    sweep per split): the traces are exact up to rounding, bound 1e-4.  At
+    0.92 pi the thetas entangle and two-site TDVP has a genuine splitting
+    error (9.09e-5 in sz, 8.02e-5 in LE over these 10 periods with the port's
+    complex128 Jacobi twin on the CPU, the same as with LAPACK splits).  So
+    that leg is also run in complex128 on the CPU with LAPACK splits, an
+    SVD independent of the kernel: the card must agree with it to 1e-5
+    (complex64 rounding), and with the oracle to that run's own error plus
+    1e-5."""
+    import importlib.util
+
+    import torch
+
+    # by path: a top-level 'tests' package elsewhere on sys.path would shadow
+    # the checkout's tests/ directory
+    spec = importlib.util.spec_from_file_location(
+        "exact_reference", REPO / "tests" / "exact_reference.py")
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    from timecrystal_tpu_torch.core.mps import create_initial_state
+    from timecrystal_tpu_torch.models.long_range import (LongRangeKickedIsing,
+                                                         fitted_couplings)
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    L, chi, alpha, tau, n = 10, 32, 1.3, 0.4, 10
+
+    def run(theta, dtype, device):
+        model = LongRangeKickedIsing(L, 1.0, 0.3, tau, alpha=alpha,
+                                     disorder_seed=42, theta=theta, chi=chi,
+                                     substeps=2, dtype=dtype, device=device)
+        psi0 = create_initial_state(L, "neel", chi=chi, dtype=dtype,
+                                    device=device)
+        traces, _, info = model.evolve(psi0, n)
+        return model, traces, info
+
+    for frac in (1.0, 0.92):
+        theta = frac * float(np.pi)
+        l0, c0 = J.V_KERNEL_LAUNCHES, J.CUDA_SVD_CALLS
+        model, traces, info = run(theta, torch.complex64, "cuda")
+        launches, calls = J.V_KERNEL_LAUNCHES - l0, J.CUDA_SVD_CALLS - c0
+        sz, le = _oracle_traces(oracle, L, fitted_couplings(L, 1.0, alpha),
+                                model.h_fields, tau, theta, n)
+        d_sz, d_le = _trace_err(traces, sz, le)
+        line = (f"[tdvp-oracle] long-range L={L} chi={chi} alpha={alpha} "
+                f"tau={tau} theta={frac} pi, {n} periods, complex64: max |d sz| "
+                f"{d_sz:.2e}, max |d LE| {d_le:.2e}")
+        _check(launches > 0, f"the TDVP oracle leg at {frac} pi launched no kernel 2")
+        if frac == 1.0:
+            bound = (1e-4, 1e-4)
+            line += " (< 1e-4)"
+        else:
+            # the same TDVP, complex128 on the CPU with LAPACK splits
+            _, ref, _ = run(theta, torch.complex128, "cpu")
+            e_sz, e_le = _trace_err(ref, sz, le)
+            c_sz, c_le = _trace_err(traces, ref["sz_sites"], ref["loschmidt_echo"])
+            bound = (e_sz + 1e-5, e_le + 1e-5)
+            line += (f" (< {bound[0]:.2e}, {bound[1]:.2e}: the complex128 CPU "
+                     f"run's splitting error {e_sz:.2e}, {e_le:.2e} + 1e-5); "
+                     f"against the complex128 CPU run {c_sz:.2e}, {c_le:.2e} "
+                     f"(< 1e-5)")
+            _check(c_sz < 1e-5 and c_le < 1e-5,
+                   f"TDVP at {frac} pi differs from the complex128 CPU run")
+            _check(launches > calls, f"rank-1 splits only at {frac} pi")
+        print(f"{line}; {calls} SVD calls, {launches} kernel-2 launches "
+              f"({launches / max(calls, 1):.2f} sweeps per call); "
+              f"{info['periods_per_second']:.2f} periods/s", flush=True)
+        _check(d_sz < bound[0] and d_le < bound[1],
+               f"TDVP trace mismatch with the oracle at {frac} pi")
+
+
+def phase_range():
+    """The interaction-range diagram's scan at its own widths: kernel 2's
+    main path.  Host syncs are counted with torch's sync debug mode; each
+    run's traces are recorded by wrapping ``LongRangeKickedIsing.evolve``
+    for the duration of the scan."""
+    import torch
+
+    from timecrystal_tpu_torch.models import long_range as LR
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    c = RANGE
+    n_runs = len(c["alphas"])
+    torch.cuda.reset_peak_memory_stats()
+    J.V_KERNEL_LAUNCHES = 0          # the main path's count starts here
+    J.CUDA_SVD_CALLS = 0
+    runs, evolve = [], LR.LongRangeKickedIsing.evolve
+
+    def recorded(self, psi, n_periods):
+        out = evolve(self, psi, n_periods)
+        runs.append(out)
+        return out
+
+    LR.LongRangeKickedIsing.evolve = recorded
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            out = LR.scan_interaction_range(
+                c["alphas"], L=c["L"], J=c["J"], h_disorder=c["h"],
+                tau=c["tau"], theta=c["theta_frac"] * float(np.pi),
+                n_periods=c["n_periods"], n_realizations=1, chi=c["chi"],
+                substeps=c["substeps"], seed0=c["seed"],
+                dtype=torch.complex64, device="cuda")
+            wall = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        LR.LongRangeKickedIsing.evolve = evolve
+    launches, calls = J.V_KERNEL_LAUNCHES, J.CUDA_SVD_CALLS
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    n_per = n_runs * c["n_periods"]
+    _check(len(runs) == n_runs, f"{len(runs)} runs recorded, not {n_runs}")
+    for tr, _, _ in runs:
+        for k, v in tr.items():
+            _check(bool(np.all(np.isfinite(v))), f"non-finite trace {k}")
+        _check(tr["sz_sites"].shape == (c["n_periods"] + 1, c["L"]),
+               "sz shape")
+        le = tr["loschmidt_echo"]
+        _check(float(le.min()) >= 0.0 and float(le.max()) <= 1.0 + 1e-5,
+               f"LE outside [0, 1]: {le.min()} {le.max()}")
+    _check(bool(np.all(np.isfinite(out["a2t"]))), "non-finite A2T")
+    _check(launches > 0, "the range scan launched no kernel 2")
+    rates = [info["periods_per_second"] for _, _, info in runs]
+    print(f"[range] L={c['L']} chi={c['chi']} (n={2 * c['chi']}) n_exp=12 "
+          f"substeps={c['substeps']} theta=0.95 pi, {c['n_periods']} periods "
+          f"x alpha {list(c['alphas'])}: A2T {np.round(out['a2t'], 4).tolist()}; "
+          f"{n_per / wall:.3f} periods/s ({wall:.1f} s; per run "
+          f"{[round(r, 3) for r in rates]}); {calls} SVD calls "
+          f"({calls / n_per:.1f} per period), {launches} sweeps "
+          f"({launches / max(calls, 1):.2f} per call); host syncs "
+          f"{syncs} ({syncs / n_per:.1f} per period); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    return launches, wall / n_per
+
+
+def phase_range_profile(period_s: float):
+    """Where the TDVP period's time goes: torch.profiler over one period of
+    the range leg's alpha=1.5 model, kernel device time by class.  The
+    profiler slows the host, so the idle share is also given against
+    ``period_s``, the range leg's unprofiled seconds per period."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from timecrystal_tpu_torch.core.mps import create_initial_state
+    from timecrystal_tpu_torch.models.long_range import LongRangeKickedIsing
+
+    c = RANGE
+    model = LongRangeKickedIsing(
+        c["L"], c["J"], c["h"], c["tau"], alpha=c["alphas"][0],
+        disorder_seed=c["seed"], theta=c["theta_frac"] * float(np.pi),
+        chi=c["chi"], substeps=c["substeps"], dtype=torch.complex64,
+        device="cuda")
+    psi = create_initial_state(c["L"], "neel", chi=c["chi"],
+                               dtype=torch.complex64, device="cuda")
+    for _ in range(4):                         # past the low-rank start
+        psi = model.floquet_step(psi)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        psi = model.floquet_step(psi)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes = {"jacobi sweep (kernel 2)": 0.0, "eigh (cuSOLVER)": 0.0,
+               "matmul / einsum": 0.0, "other": 0.0}
+    n_sync = 0
+    for evt in prof.key_averages():
+        if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            n_sync += evt.count
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = float(getattr(evt, "self_device_time_total", 0.0)) / 1e3   # ms
+        name = evt.key.lower()
+        if "jacobi_sweep" in name:
+            classes["jacobi sweep (kernel 2)"] += t
+        elif any(k in name for k in ("syevd", "sytrd", "stedc", "ormtr",
+                                     "syevj", "heevd", "hetrd", "lapack",
+                                     "eigh", "steqr", "sterf", "larf")):
+            classes["eigh (cuSOLVER)"] += t
+        elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass",
+                                     "bmm", "dot")):
+            classes["matmul / einsum"] += t
+        else:
+            classes["other"] += t
+    busy = sum(classes.values())
+    parts = ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.0%})"
+                      for k, v in classes.items())
+    print(f"[range-profile] 1 period, alpha={c['alphas'][0]}: wall "
+          f"{wall * 1e3:.1f} ms (profiled), device busy {busy:.1f} ms, idle "
+          f"share {1 - busy / (wall * 1e3):.3f} (against the unprofiled "
+          f"{period_s * 1e3:.1f} ms per period: {1 - busy / (period_s * 1e3):.3f}); "
+          f"{parts}; "
+          f"{n_sync} CUDA runtime synchronize calls", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -323,17 +726,25 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     phase_build()
-    worst, ms, plain_ms = phase_kernels()
+    k1 = phase_kernels()
+    k2 = phase_v_kernels()
     phase_golden()
-    launches = phase_real_size()
+    k1["launches"] = phase_real_size()
+    phase_tdvp_oracle()
+    k2["launches"], period_s = phase_range()
+    phase_range_profile(period_s)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi_line)
-    print(json.dumps({"kernels": [{
-        "name": "jacobi_sweep", "route": "cuda",
-        "source": "timecrystal_tpu_torch/csrc/jacobi_sweep.cu",
-        "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:159",
-        "launches": launches, "max_abs_err": worst,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    source = "timecrystal_tpu_torch/csrc/jacobi_sweep.cu"
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {"name": "jacobi_sweep", "route": "cuda", "source": source,
+         "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:159",
+         **{k: k1[k] for k in keys}},
+        {"name": "jacobi_sweep_v", "route": "cuda", "source": source,
+         "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:75",
+         **{k: k2[k] for k in keys}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -50,8 +50,10 @@ def _golden_run(path, method, n_periods=None):
         sz_ref, le_ref = z["sz_sites"], z["loschmidt_echo"]
     n = n if n_periods is None else n_periods
     m = tki.KickedIsingModel(L, 1.0, float(np.max(np.abs(hf))), tau,
-                             h_fields=hf, theta=theta, chi=chi, dtype=C128)
-    psi0 = tmps.create_initial_state(L, "neel", chi=chi, dtype=C128)
+                             h_fields=hf, theta=theta, chi=chi, dtype=C128,
+                             device="cpu")
+    psi0 = tmps.create_initial_state(L, "neel", chi=chi, dtype=C128,
+                                     device="cpu")
     tp = TruncParams.reference_hot_path()._replace(svd_method=method)
     tr, times, _ = tebd.CustomFloquet(m, tp).evolve_floquet_traces(psi0, n)
     return tr, sz_ref[:n + 1], le_ref[:n + 1]
@@ -85,7 +87,8 @@ def test_golden_trace_jacobi_twin(path):
 def _entangling_model(L=8, chi=16, bc="open"):
     hf = tki.draw_disorder_reference(L, 0.3, 5)
     return tki.KickedIsingModel(L, 1.0, 0.3, 1.0, h_fields=hf, bc=bc,
-                                theta=0.9 * np.pi, chi=chi, dtype=C128)
+                                theta=0.9 * np.pi, chi=chi, dtype=C128,
+                                device="cpu")
 
 
 def test_strict_and_merged_frames_agree():
@@ -93,7 +96,8 @@ def test_strict_and_merged_frames_agree():
     two frames agree to rounding: 1e-12.  The merged frame's final state is
     mapped back through H^{-1} and equals the strict one."""
     m = _entangling_model()
-    psi0 = tmps.create_initial_state(m.n_sites, "neel", chi=m.chi, dtype=C128)
+    psi0 = tmps.create_initial_state(m.n_sites, "neel", chi=m.chi,
+                                     dtype=C128, device="cpu")
     tp = TruncParams(svd_min=1e-14, svd_method="native")
     ps, ts = tebd.evolve_floquet_scan(psi0, m.gates, 6, tp, frame="strict")
     pm, tm = tebd.evolve_floquet_scan(psi0, m.gates, 6, tp, frame="merged")
@@ -108,7 +112,7 @@ def test_strict_and_merged_frames_agree():
 def test_sparse_measurement_matches_dense():
     """measure_every=m samples the dense trace (trunc_err included)."""
     m = _entangling_model(L=6, chi=8)
-    psi0 = tmps.create_initial_state(6, "neel", chi=8, dtype=C128)
+    psi0 = tmps.create_initial_state(6, "neel", chi=8, dtype=C128, device="cpu")
     tp = TruncParams(svd_min=1e-14, svd_method="native")
     _, dense = tebd.evolve_floquet_scan(psi0, m.gates, 6, tp)
     _, sparse = tebd.evolve_floquet_scan(psi0, m.gates, 6, tp,
@@ -129,7 +133,7 @@ def test_staged_matches_fixed_chi():
     L, chi = 8, 16
     hf = tki.draw_disorder_reference(L, 0.3, 5)
     kw = dict(n_sites=L, J=1.0, h_disorder=0.3, tau=1.0, h_fields=hf,
-              theta=0.9 * np.pi, dtype=C128)
+              theta=0.9 * np.pi, dtype=C128, device="cpu")
     tp = TruncParams(svd_min=1e-12, svd_method="native")
     for frame in ("strict", "merged"):
         tr, times, info, _ = tebd.evolve_floquet_auto(
@@ -137,7 +141,8 @@ def test_staged_matches_fixed_chi():
             frame=frame)
         assert info["chi_escalations"], "the ladder must be exercised"
         m = tki.KickedIsingModel(chi=chi, **kw)
-        psi0 = tmps.create_initial_state(L, "neel", chi=chi, dtype=C128)
+        psi0 = tmps.create_initial_state(L, "neel", chi=chi, dtype=C128,
+                                         device="cpu")
         ref, _, _ = tebd.CustomFloquet(m, tp).evolve_floquet_traces(psi0, 12)
         for k in ("sz_sites", "loschmidt_echo", "staggered_magnetization"):
             np.testing.assert_allclose(tr[k], ref[k], rtol=0, atol=1e-9)
@@ -177,7 +182,8 @@ def test_periodic_period_matches_jax():
     out_j, err_j = jki.floquet_period(psi_j, gj, JTruncParams(svd_method="native"))
     gt = tki.make_floquet_gates(1.0, torch.as_tensor(hf), 1.0,
                                 theta=0.9 * np.pi, dtype=C128, bc="periodic")
-    psi_t = tmps.create_initial_state(L, "neel", chi=chi, dtype=C128)
+    psi_t = tmps.create_initial_state(L, "neel", chi=chi, dtype=C128,
+                                      device="cpu")
     out_t, err_t = tki.floquet_period(psi_t, gt, TruncParams(svd_method="native"))
     np.testing.assert_allclose(tmps.to_statevector(out_t),
                                jmps.to_statevector(out_j), rtol=0, atol=1e-10)
@@ -196,13 +202,13 @@ def test_observables_match_jax():
     np.testing.assert_array_equal(a["staggered_magnetization"],
                                   b["staggered_magnetization"])
     np.testing.assert_array_equal(
-        tobs.staggered_signs(6, torch.float64).numpy(),
+        tobs.staggered_signs(6, torch.float64, device="cpu").numpy(),
         np.asarray(jobs.staggered_signs(6, jnp.float64)))
 
 
 def test_unported_options_raise():
     m = _entangling_model(L=4, chi=4)
-    psi0 = tmps.create_initial_state(4, "neel", chi=4, dtype=C128)
+    psi0 = tmps.create_initial_state(4, "neel", chi=4, dtype=C128, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tebd.evolve_floquet_scan(psi0, m.gates, 2, TruncParams(),
                                  with_states=True)
@@ -211,5 +217,5 @@ def test_unported_options_raise():
                                  correlation_site=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tebd.evolve_floquet_auto(dict(n_sites=4, J=1.0, h_disorder=0.3,
-                                      tau=1.0), "neel", 2,
+                                      tau=1.0, device="cpu"), "neel", 2,
                                  checkpoint_dir="unused")

@@ -180,9 +180,9 @@ def test_csvd_topk_jacobi_matches_native():
     assert torch.equal(Sa, Sn)
 
 
-@pytest.mark.parametrize("method", ["jacobi_full", "jacobi_proj",
-                                    "jacobi_core", "jacobi_core_fast",
-                                    "gram_eigh", "gram_eigh_gs"])
+@pytest.mark.parametrize("method", ["jacobi_proj", "jacobi_core",
+                                    "jacobi_core_fast", "gram_eigh",
+                                    "gram_eigh_gs"])
 def test_unported_methods_raise(method):
     M = torch.eye(4, dtype=torch.complex128)[None]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -190,10 +190,16 @@ def test_unported_methods_raise(method):
 
 
 def test_unknown_method_and_rectangular_jacobi_raise():
+    """An unknown name raises; a rectangular 'jacobi' panel no longer
+    raises but takes the V-accumulating jacobi_svd (S to 1e-12 of LAPACK's)."""
     with pytest.raises(ValueError):
         csvd_topk(torch.eye(4, dtype=torch.complex128), 2, method="natve")
-    with pytest.raises(NotImplementedError):
-        csvd_topk(torch.ones(4, 6, dtype=torch.complex128), 2, method="jacobi")
+    M = torch.as_tensor(_random(np.random.default_rng(2), 6)[:4])
+    S, Vh, disc = csvd_topk(M, 2, method="jacobi")
+    Sn, _, dn = csvd_topk(M, 2, method="native")
+    np.testing.assert_allclose(S.numpy(), Sn.numpy(), atol=1e-12)
+    np.testing.assert_allclose(disc.numpy(), dn.numpy(), atol=1e-12)
+    assert Vh.shape == (2, 6)
 
 
 def test_cpu_tensor_never_launches_the_kernel():

@@ -2,13 +2,34 @@
 ships under csrc/, and the kernel builds for sm_90a into an ignored
 directory."""
 
+import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 import timecrystal_tpu_torch
+from timecrystal_tpu_torch import convert
+from timecrystal_tpu_torch.core import gates, mps, observables, truncate
+from timecrystal_tpu_torch.dynamics import tdvp
+from timecrystal_tpu_torch.models import kicked_ising, long_range
 from timecrystal_tpu_torch.ops import cuda_build
+from timecrystal_tpu_torch.parallel import sweep
+
+ENTRY_POINTS = [
+    mps.product_state, mps.create_initial_state, gates.gate_from_numpy,
+    gates.pauli_c, gates.pi_pulse_gate, gates.x_rotation_gate,
+    observables.staggered_signs, truncate.swap_gate, convert.complex_from_pair,
+    convert.mps_from_numpy, convert.gates_from_numpy, convert.mpo_from_numpy,
+    kicked_ising.KickedIsingModel, sweep.evolve_batch_auto, tdvp.build_mpo,
+    tdvp.spin_chain_mpo, tdvp.ising_fields_mpo, tdvp.TDVPEvolution,
+    tdvp.TDVPEvolution.from_spin_chain, tdvp.TDVPFloquetEvolution,
+    long_range.build_fsm_mpo, long_range.long_range_ising_mpo,
+    long_range.LongRangeKickedIsing, long_range.scan_interaction_range,
+]
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -48,6 +69,8 @@ def test_kernel_source_ships_under_csrc():
     text = src.read_text()
     assert 'extern "C" int tct_jacobi_sweep_c64' in text
     assert 'extern "C" int tct_jacobi_sweep_c128' in text
+    assert 'extern "C" int tct_jacobi_sweep_v_c64' in text
+    assert 'extern "C" int tct_jacobi_sweep_v_c128' in text
     assert "cudaGetLastError" in text
     assert "csrc/*.cu" in (REPO / "pyproject.toml").read_text()
 
@@ -63,3 +86,21 @@ def test_build_command_targets_sm90a_into_an_ignored_directory():
     assert rel in ignored, (rel, ignored)
     # the library name tracks the source: an edited kernel is rebuilt
     assert out.name.startswith("jacobi_sweep-") and out.suffix == ".so"
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS, ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(entry):
+    """Every entry point that builds state runs on the card unless the
+    caller asks for the CPU: its ``device`` defaults to 'cuda'."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_default_device_never_falls_back_to_the_cpu():
+    """Without a card a default call raises torch's own error; nothing probes
+    for a GPU and quietly builds on the CPU."""
+    if torch.cuda.is_available():
+        psi = mps.create_initial_state(4)
+        assert psi.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        mps.create_initial_state(4)

@@ -49,7 +49,7 @@ def test_evolve_batch_auto_matches_jax():
     tt, it = tsw.evolve_batch_auto(
         h, taus, tsw._basis_indices(L, "neel"),
         tsw.SweepSpec(tp=TruncParams(svd_min=1e-12), **kw),
-        chi_start=4, chunk_periods=3, growth=2.0)
+        chi_start=4, chunk_periods=3, growth=2.0, device="cpu")
     assert it["chi_escalations"] == ij["chi_escalations"]
     assert it["chi_escalations"], "the ladder must be exercised"
     assert it["chi_pad_used"] == ij["chi_pad_used"]
@@ -76,7 +76,7 @@ def test_unported_arguments_raise(arg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsw.evolve_batch_auto(np.zeros((1, 4)), np.ones(1),
                               tsw._basis_indices(4, "neel"), spec,
-                              **{arg: 1})
+                              device="cpu", **{arg: 1})
 
 
 def test_draw_disorder_batch_is_seeded_and_bounded():

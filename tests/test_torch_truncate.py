@@ -64,7 +64,7 @@ def _random_gates(seed):
 
 def _to_port(psi):
     return convert.mps_from_numpy(np.asarray(psi.B.re), np.asarray(psi.B.im),
-                                  np.asarray(psi.lam))
+                                  np.asarray(psi.lam), device="cpu")
 
 
 @pytest.mark.parametrize("start", [0, 1])
@@ -179,7 +179,8 @@ def test_convert_round_trip():
     gt = convert.gates_from_numpy(
         np.asarray(g.bond_gates.re), np.asarray(g.bond_gates.im),
         np.asarray(g.kick.re), np.asarray(g.kick.im),
-        np.asarray(g.boundary_gate.re), np.asarray(g.boundary_gate.im))
+        np.asarray(g.boundary_gate.re), np.asarray(g.boundary_gate.im),
+        device="cpu")
     back = convert.gates_to_numpy(gt)
     np.testing.assert_array_equal(back["bond_re"], np.asarray(g.bond_gates.re))
     np.testing.assert_array_equal(back["kick_im"], np.asarray(g.kick.im))

@@ -2,7 +2,7 @@
 
 The JAX package stores complex tensors as (re, im) real pairs
 (``MPS.B.re/.im``, ``MPS.lam``, ``FloquetGates.bond_gates/.kick/
-.boundary_gate``); the port stores native complex tensors.  These
+.boundary_gate``, ``MPO.W.re/.im``); the port stores native complex tensors.  These
 functions take and return numpy arrays only -- the caller does the
 ``np.asarray`` on the JAX side -- so this module never imports JAX.
 """
@@ -13,10 +13,11 @@ import numpy as np
 import torch
 
 from .core.mps import MPS
+from .dynamics.tdvp import MPO
 from .models.kicked_ising import FloquetGates
 
 
-def complex_from_pair(re, im, device="cpu", dtype=None) -> torch.Tensor:
+def complex_from_pair(re, im, device="cuda", dtype=None) -> torch.Tensor:
     """(re, im) numpy pair -> complex tensor (complex128 for float64 input,
     complex64 otherwise, unless ``dtype`` is given)."""
     re, im = np.asarray(re), np.asarray(im)
@@ -31,7 +32,7 @@ def complex_to_pair(x: torch.Tensor):
     return np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag)
 
 
-def mps_from_numpy(B_re, B_im, lam, device="cpu", dtype=None) -> MPS:
+def mps_from_numpy(B_re, B_im, lam, device="cuda", dtype=None) -> MPS:
     """The JAX package's MPS arrays (B.re, B.im, lam) -> port MPS."""
     B = complex_from_pair(B_re, B_im, device, dtype)
     return MPS(B=B, lam=torch.tensor(np.asarray(lam), dtype=B.dtype.to_real(),
@@ -46,7 +47,7 @@ def mps_to_numpy(psi: MPS):
 
 
 def gates_from_numpy(bond_re, bond_im, kick_re, kick_im, boundary_re=None,
-                     boundary_im=None, device="cpu", dtype=None) -> FloquetGates:
+                     boundary_im=None, device="cuda", dtype=None) -> FloquetGates:
     """The JAX package's FloquetGates arrays -> port FloquetGates."""
     boundary = (None if boundary_re is None else
                 complex_from_pair(boundary_re, boundary_im, device, dtype))
@@ -66,3 +67,15 @@ def gates_to_numpy(gates: FloquetGates) -> dict:
         out["boundary_re"], out["boundary_im"] = complex_to_pair(
             gates.boundary_gate)
     return out
+
+
+def mpo_from_numpy(W_re, W_im, device="cuda", dtype=None) -> MPO:
+    """The JAX package's MPO arrays (W.re, W.im) [L, Dw, Dw, d, d] -> port
+    MPO."""
+    return MPO(W=complex_from_pair(W_re, W_im, device, dtype))
+
+
+def mpo_to_numpy(mpo: MPO):
+    """Port MPO -> (W_re, W_im) numpy pair (rebuild there with
+    ``MPO(W=C(W_re, W_im))``)."""
+    return complex_to_pair(mpo.W)

@@ -23,18 +23,26 @@ def pauli_matrices() -> dict:
             "Z": SIGMA_Z.copy()}
 
 
-def pauli_c(name: str, dtype=torch.complex64, device="cpu") -> torch.Tensor:
+def gate_from_numpy(U, dtype=torch.complex64, device="cuda") -> torch.Tensor:
+    """Dense complex operator (host numpy) -> complex tensor on ``device``
+    (the MPO builders' entry; real and imaginary parts round separately,
+    as the JAX package's real pairs do)."""
+    return torch.as_tensor(np.asarray(U, dtype=np.complex128)).to(
+        dtype=dtype, device=device)
+
+
+def pauli_c(name: str, dtype=torch.complex64, device="cuda") -> torch.Tensor:
     """Pauli operator as a complex tensor on ``device``."""
     return torch.as_tensor(pauli_matrices()[name.upper()], dtype=dtype,
                            device=device)
 
 
-def pi_pulse_gate(dtype=torch.complex64, device="cpu") -> torch.Tensor:
+def pi_pulse_gate(dtype=torch.complex64, device="cuda") -> torch.Tensor:
     """expm(-i pi/2 sigma_x) == -i sigma_x exactly."""
     return torch.as_tensor(-1j * SIGMA_X, dtype=dtype, device=device)
 
 
-def x_rotation_gate(theta, dtype=torch.complex64, device="cpu") -> torch.Tensor:
+def x_rotation_gate(theta, dtype=torch.complex64, device="cuda") -> torch.Tensor:
     """exp(-i theta/2 sigma_x), with cos/sin evaluated in the real dtype
     of ``dtype`` (as the JAX package does in its working dtype)."""
     th = torch.as_tensor(theta, dtype=dtype.to_real(), device=device)

@@ -72,7 +72,7 @@ def pad_mps(psi: MPS, new_chi: int) -> MPS:
 
 
 def product_state(basis_indices, chi: int, d: int = 2,
-                  dtype=torch.complex64, device="cpu") -> MPS:
+                  dtype=torch.complex64, device="cuda") -> MPS:
     """Product-state MPS |i_0 ... i_{L-1}> with padded bond chi.
 
     ``basis_indices``: ints [..., L] (0 = up for d=2); leading axes become
@@ -108,7 +108,7 @@ def state_basis_indices(n_sites: int, state_type: str, d: int = 2,
 
 def create_initial_state(n_sites: int, state_type: str = "all_up",
                          chi: int = 64, d: int = 2, dtype=torch.complex64,
-                         device="cpu",
+                         device="cuda",
                          rng: np.random.Generator | None = None) -> MPS:
     """Named initial product states (all_up / all_down / neel / random)."""
     idx = state_basis_indices(n_sites, state_type, d=d, rng=rng)

@@ -1,4 +1,4 @@
-"""Observables needed by the Floquet traces and the DTC readout.
+"""Observables needed by the Floquet and TDVP traces and the DTC readout.
 
 Port of the matching functions of ``timecrystal_tpu/core/observables.py``;
 the subharmonic recipe is host numpy, exactly the JAX package's (and the
@@ -9,6 +9,20 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import gates as G
+from .mps import MPS, expectation_one_site, overlap
+
+
+def calculate_loschmidt_echo(psi_initial: MPS, psi_evolved: MPS) -> torch.Tensor:
+    """L(t) = |<psi0|psi(t)>|^2, one real value per chain."""
+    ov = overlap(psi_initial, psi_evolved)
+    return ov.real * ov.real + ov.imag * ov.imag
+
+
+def sz_sites(psi: MPS) -> torch.Tensor:
+    """<sigma_z_i> for every site, [..., L] real."""
+    return expectation_one_site(psi, G.pauli_c("z", psi.dtype, psi.device)).real
 
 
 def add_derived_magnetization(traces: dict, L: int) -> dict:
@@ -22,7 +36,7 @@ def add_derived_magnetization(traces: dict, L: int) -> dict:
     return traces
 
 
-def staggered_signs(L: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+def staggered_signs(L: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.where(np.arange(L) % 2 == 0, 1.0, -1.0),
                            dtype=dtype, device=device)
 

@@ -179,7 +179,7 @@ def apply_single_bond_gate(psi: MPS, gate: torch.Tensor, bond: int,
     return MPS(B=B, lam=lam), disc.to(lam.dtype)
 
 
-def swap_gate(d: int = 2, dtype=torch.complex64, device="cpu") -> torch.Tensor:
+def swap_gate(d: int = 2, dtype=torch.complex64, device="cuda") -> torch.Tensor:
     """SWAP gate [p, q, r, s] = delta_{p s} delta_{q r}."""
     eye = torch.eye(d, dtype=dtype, device=device)
     return torch.einsum("ps,qr->pqrs", eye, eye)

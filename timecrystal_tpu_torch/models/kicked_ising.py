@@ -187,7 +187,7 @@ class KickedIsingModel:
     def __init__(self, n_sites: int, J: float, h_disorder: float, tau: float,
                  bc: str = "open", disorder_seed: int | None = None,
                  h_fields: np.ndarray | None = None, theta: float = np.pi,
-                 chi: int = 64, dtype=torch.complex64, device="cpu"):
+                 chi: int = 64, dtype=torch.complex64, device="cuda"):
         if bc not in ("open", "periodic"):
             raise ValueError(f"Unknown boundary condition: {bc}")
         self.n_sites = int(n_sites)

@@ -1,28 +1,35 @@
-"""Top-k truncated complex SVD for the two-site update.
+"""Complex SVD and Hermitian eigendecomposition for the MPS updates.
 
-Port of ``csvd_topk`` from ``timecrystal_tpu/ops/csvd.py``.  Methods:
+Port of ``timecrystal_tpu/ops/csvd.py``.  SVD methods:
 
   * ``'native'``: ``torch.linalg.svd`` (LAPACK on CPU);
-  * ``'jacobi'``: ``ops.jacobi_svd.jacobi_sv`` (the CUDA sweep kernel on a
-    CUDA tensor, its torch twin on a CPU tensor) plus top-k slicing;
-  * ``'auto'``: ``'native'`` for CPU tensors, ``'jacobi'`` for CUDA tensors.
+  * ``'jacobi'``: the one-sided Jacobi of ``ops.jacobi_svd`` -- on a CUDA
+    tensor the CUDA sweep kernels, on a CPU tensor their torch twins.
+    ``csvd_topk`` takes the V-free ``jacobi_sv`` for square even-width
+    panels and the V-accumulating ``jacobi_svd`` for the rest; ``csvd``
+    always takes ``jacobi_svd`` (it returns U);
+  * ``'jacobi_full'`` (``csvd_topk`` only): ``jacobi_svd`` for every panel;
+  * ``'auto'``: ``'native'`` for CPU tensors, ``'jacobi'`` otherwise.  The
+    JAX package's ``'auto'`` picks a Gram/eigh SVD on the TPU only because
+    that backend has no SVD.
 
 The JAX package's other methods are not ported yet and raise
 ``NotImplementedError`` naming the ROADMAP item: nothing reroutes silently.
-The Gram/eigh methods exist there only because the TPU backend has no SVD.
+
+``heigh`` / ``hermitian_invsqrt`` / ``cqr_tall`` (TDVP's canonical splits)
+use ``torch.linalg.eigh`` on every device; the JAX package's real-embedded
+eigh exists only because the TPU has no complex dtype.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .jacobi_svd import jacobi_sv
+from .jacobi_svd import jacobi_sv, jacobi_svd
 
 _PROJECTED = "ROADMAP.md queue 1, 'jacobi_proj / jacobi_core'"
-_V_KERNEL = "ROADMAP.md queue 1, 'Kernel 2: _jacobi_sweep_v_kernel'"
 _ALIASES = "ROADMAP.md queue 1, 'csvd and the Gram/eigh method names'"
 _NOT_PORTED = {
-    "jacobi_full": _V_KERNEL,
     "jacobi_proj": _PROJECTED,
     "jacobi_core": _PROJECTED,
     "jacobi_core_fast": _PROJECTED,
@@ -31,28 +38,88 @@ _NOT_PORTED = {
 }
 
 
+def _resolve(method: str, x: torch.Tensor, what: str) -> str:
+    if method == "auto":
+        method = "native" if x.device.type == "cpu" else "jacobi"
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{what} method {method!r} is not ported yet: {_NOT_PORTED[method]}")
+    return method
+
+
 def csvd_topk(theta: torch.Tensor, k: int, method: str = "auto",
               jacobi_sweeps: int = 0):
     """Top-k truncated SVD of theta [..., m, n]: (S [..., k], Vh [..., k, n],
     disc [...]) with disc the discarded weight sum(S[k:]^2).
-    ``jacobi_sweeps``: sweep cap of the Jacobi method, 0 = dtype default."""
+    ``jacobi_sweeps``: sweep cap of the Jacobi methods, 0 = dtype default."""
     m, n = theta.shape[-2:]
-    if method == "auto":
-        method = "native" if theta.device.type == "cpu" else "jacobi"
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"csvd_topk method {method!r} is not ported yet: "
-            f"{_NOT_PORTED[method]}")
-    if method == "jacobi":
-        if m != n or n % 2:
-            raise NotImplementedError(
-                "rectangular / odd-width panels need the V-accumulating "
-                f"kernel: {_NOT_PORTED['jacobi_full']}")
+    method = _resolve(method, theta, "csvd_topk")
+    if method == "jacobi" and m == n and n % 2 == 0:
         S, V = jacobi_sv(theta, max_sweeps=jacobi_sweeps or None, polish=k)
         Vh = V.mH
+    elif method in ("jacobi", "jacobi_full"):
+        _, S, Vh = jacobi_svd(theta, n_sweeps=jacobi_sweeps or None)
     elif method == "native":
         _, S, Vh = torch.linalg.svd(theta, full_matrices=False)
     else:
         raise ValueError(f"unknown csvd_topk method: {method}")
     disc = (S[..., k:] ** 2).sum(-1)
     return S[..., :k], Vh[..., :k, :], disc
+
+
+def csvd(theta: torch.Tensor, method: str = "auto"):
+    """Batched complex SVD: theta [..., m, n] -> (U, S, Vh), S descending.
+
+    'native' returns LAPACK's thin shapes (U [..., m, min], Vh [..., min, n]);
+    'jacobi' returns ``jacobi_svd``'s (U [..., m, n], Vh [..., n, n]), as the
+    JAX package does."""
+    method = _resolve(method, theta, "csvd")
+    if method == "jacobi":
+        return jacobi_svd(theta)
+    if method == "native":
+        return torch.linalg.svd(theta, full_matrices=False)
+    raise ValueError(f"unknown csvd method: {method}")
+
+
+def heigh(G: torch.Tensor, method: str = "auto"):
+    """Complex Hermitian eigendecomposition G = V diag(w) V^H, w ascending,
+    batched over leading axes."""
+    method = "native" if method == "auto" else method
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"heigh method {method!r} is not ported yet: {_NOT_PORTED[method]}")
+    if method != "native":
+        raise ValueError(f"unknown heigh method: {method}")
+    return torch.linalg.eigh(G)
+
+
+def hermitian_invsqrt(G: torch.Tensor, rel_eps: float | None = None,
+                      method: str = "auto"):
+    """(G^{-1/2}, G^{1/2}) for Hermitian PSD G [n, n] with padded-rank
+    masking: eigenvalues below rel_eps * w_max are exact zeros (their
+    directions stay zero, the padded-MPS convention).  Default rel_eps =
+    16 * machine eps."""
+    w, V = heigh(G, method=method)
+    if rel_eps is None:
+        rel_eps = 16.0 * torch.finfo(w.dtype).eps
+    wmax = w.max() + 1e-300
+    ok = w > rel_eps * wmax
+    zero = torch.zeros_like(w)
+    inv = torch.where(ok, 1.0 / torch.sqrt(torch.clamp(w, min=1e-300)), zero)
+    sq = torch.where(ok, torch.sqrt(torch.clamp(w, min=0.0)), zero)
+    Vh = V.mH
+    return (V * inv.to(V.dtype)) @ Vh, (V * sq.to(V.dtype)) @ Vh
+
+
+def cqr_tall(M: torch.Tensor, method: str = "auto"):
+    """Isometric factorization M = Q R for tall M [m, n] (m >= n): Q^H Q = I
+    on the numerical range, R [n, n] Hermitian PSD (not triangular -- TDVP
+    needs some isometric split, and the JAX package's Hermitian square root
+    is kept so both packages split alike).  Cholesky-QR via eigh,
+    G = M^H M, Q = M G^{-1/2}, R = G^{1/2}, plus one refinement pass.
+    Rank-deficient directions give zero columns of Q and zero rows/columns
+    of R."""
+    inv_sqrt, sqrt = hermitian_invsqrt(M.mH @ M, method=method)
+    Q = M @ inv_sqrt
+    inv2, sq2 = hermitian_invsqrt(Q.mH @ Q, method=method)
+    return Q @ inv2, sq2 @ sqrt

@@ -1,23 +1,30 @@
-"""One-sided complex Jacobi (S, V) for the TEBD two-site update.
+"""One-sided complex Jacobi SVD: (S, V) for the TEBD two-site update and
+the full (U, S, Vh).
 
-Port of the ``jacobi_sv`` half of ``timecrystal_tpu/ops/pallas/jacobi_svd.py``.
-The sweep -- the one Pallas kernel on the main path, ``_jacobi_sweep_kernel``
--- is the hand-written CUDA kernel ``csrc/jacobi_sweep.cu``; beside it lives
-its plain torch twin ``_jacobi_sweep_torch``, the same sweep vectorized over
-the pairs with the Pallas body's slice-and-concatenate tournament cycle.
+Port of ``timecrystal_tpu/ops/pallas/jacobi_svd.py``'s ``jacobi_sv`` and
+``jacobi_svd``.  Both Pallas sweep kernels are hand-written CUDA kernels in
+``csrc/jacobi_sweep.cu`` (one template): ``_jacobi_sweep_kernel`` (V-free)
+and ``_jacobi_sweep_v_kernel`` (also rotates the accumulator V).  Beside
+each lives its plain torch twin (``_jacobi_sweep_torch``,
+``_jacobi_sweep_v_torch``), the same sweep vectorized over the pairs with
+the Pallas body's slice-and-concatenate tournament cycle.
 
-Dispatch rule (``_sweep``): a CPU tensor runs the twin, a CUDA tensor
-launches the kernel (or raises); there is no fallback between the two.
-``KERNEL_LAUNCHES`` counts kernel launches and nothing else.
+Dispatch rule (``_sweep``, ``_sweep_v``): a CPU tensor runs the twin, any
+other tensor goes to the CUDA wrapper, which launches the kernel or raises;
+there is no fallback between the two.  ``KERNEL_LAUNCHES`` and
+``V_KERNEL_LAUNCHES`` count kernel launches and nothing else.
 
 Everything around the sweep -- the sweep-until-converged loop, the sigma
 sort and 64*eps floor, column normalization and the Newton-Schulz polish --
 is plain torch, as it is plain XLA outside the Pallas kernel in JAX.
 
-Layout: the JAX code orthogonalizes the columns of A = theta^H.  Column j of
-A is row j of X = conj(theta), so the port works on X [B, n, m] row-major:
-every column is a contiguous row (what the kernel wants), and no transpose
-copy is made.
+Layout: the kernels orthogonalize rows.  ``jacobi_sv`` works on the columns
+of A = theta^H: column j of A is row j of X = conj(theta), so X [B, n, m] is
+theta's own memory order and no transpose copy is made.  ``jacobi_svd``
+works on the columns of theta itself: X = theta^T [B, n, m], and V is kept
+as W = V^T [B, n, n] (row j = column j of V), so the same rotation acts on
+rows of X and rows of W.  Then U = normalized rows of X, transposed, and
+Vh = conj(W).
 """
 
 from __future__ import annotations
@@ -31,6 +38,11 @@ import torch
 KERNEL_LAUNCHES = 0
 # jacobi_sv calls that ran the sweep loop on a CUDA tensor
 CUDA_SV_CALLS = 0
+# V-accumulating sweep-kernel launches (one per sweep of jacobi_svd on a
+# CUDA tensor); the twin never counts
+V_KERNEL_LAUNCHES = 0
+# jacobi_svd calls that ran the sweep loop on a CUDA tensor
+CUDA_SVD_CALLS = 0
 
 _SCHEDULES: dict = {}
 
@@ -83,10 +95,12 @@ def tournament_schedule(n: int) -> np.ndarray:
     return torch.stack(rows).numpy().astype(np.int32)
 
 
-def _jacobi_sweep_torch(X: torch.Tensor):
-    """Plain torch twin of the sweep kernel: ONE tournament sweep over the
-    rows of X [B, n, m] (n even, n >= 4).  Returns (rotated X, measure [B])
-    with measure = max over the sweep's pairs of |c|^2 / maxn2^2.
+def _jacobi_sweep_v_torch(X: torch.Tensor, W: torch.Tensor | None):
+    """Plain torch twin of the sweep kernels: ONE tournament sweep over the
+    rows of X [B, n, m] (n even, n >= 4), rotating the rows of W [B, n, n]
+    (V's columns) alongside when W is given.  Returns (rotated X, rotated W
+    or None, measure [B]) with measure = max over the sweep's pairs of
+    |c|^2 / maxn2^2.
 
     As in the kernel, rows are stored in X's precision and all arithmetic
     is done in float64 (complex128), each rotated value rounded once."""
@@ -99,6 +113,9 @@ def _jacobi_sweep_torch(X: torch.Tensor):
     inv_maxn2_sq = 1.0 / torch.clamp(maxn2 * maxn2, min=1e-30)
     a, b = nrm[:, :k], nrm[:, k:]
     L, R = X[:, :k], X[:, k:]
+    if W is not None:
+        W = W.to(torch.complex128)
+        WL, WR = W[:, :k], W[:, k:]
     measure = torch.zeros(B, dtype=torch.float64, device=X.device)
     for _ in range(n - 1):
         c = torch.linalg.vecdot(L, R)                           # <L, R>, [B, k]
@@ -110,8 +127,20 @@ def _jacobi_sweep_torch(X: torch.Tensor):
         XL = (cs * L - w1 * R).to(dtype).to(torch.complex128)
         XR = (w2 * L + cs * R).to(dtype).to(torch.complex128)
         L, R = _cycle(XL, XR, 1)
+        if W is not None:
+            VL = (cs * WL - w1 * WR).to(dtype).to(torch.complex128)
+            VR = (w2 * WL + cs * WR).to(dtype).to(torch.complex128)
+            WL, WR = _cycle(VL, VR, 1)
         a, b = _cycle(a - t * absc, b + t * absc, 1)
-    return torch.cat([L, R], 1).to(dtype), measure
+    if W is not None:
+        W = torch.cat([WL, WR], 1).to(dtype)
+    return torch.cat([L, R], 1).to(dtype), W, measure
+
+
+def _jacobi_sweep_torch(X: torch.Tensor):
+    """Plain torch twin of the V-free sweep kernel: (rotated X, measure)."""
+    X, _, measure = _jacobi_sweep_v_torch(X, None)
+    return X, measure
 
 
 def _schedule_on(n: int, device: torch.device) -> torch.Tensor:
@@ -122,13 +151,9 @@ def _schedule_on(n: int, device: torch.device) -> torch.Tensor:
     return _SCHEDULES[key]
 
 
-def _jacobi_sweep_cuda(X: torch.Tensor):
-    """Launch the CUDA sweep kernel on X [B, n, m] (complex64/128, CUDA,
-    contiguous), rotating X IN PLACE.  Returns (X, measure [B] float64).
-    One launch is one sweep, enqueued on the current stream."""
-    global KERNEL_LAUNCHES
-    from .cuda_build import load_kernel_library
-
+def _check_cuda_rows(X: torch.Tensor) -> None:
+    """What the CUDA sweep kernels take: a contiguous, conj-resolved complex
+    [B, n, m] CUDA tensor with even n >= 4."""
     if X.device.type != "cuda":
         raise ValueError(f"CUDA sweep needs a CUDA tensor, got {X.device}")
     if X.dtype not in (torch.complex64, torch.complex128):
@@ -136,9 +161,20 @@ def _jacobi_sweep_cuda(X: torch.Tensor):
     if X.dim() != 3 or not X.is_contiguous() or X.is_conj():
         raise ValueError("CUDA sweep needs a contiguous, conj-resolved "
                          "[B, n, m] tensor")
-    B, n, m = X.shape
+    n = X.shape[1]
     if n % 2 or n < 4:
         raise ValueError(f"CUDA sweep needs even n >= 4, got n={n}")
+
+
+def _jacobi_sweep_cuda(X: torch.Tensor):
+    """Launch the CUDA sweep kernel on X [B, n, m] (complex64/128, CUDA,
+    contiguous), rotating X IN PLACE.  Returns (X, measure [B] float64).
+    One launch is one sweep, enqueued on the current stream."""
+    global KERNEL_LAUNCHES
+    from .cuda_build import load_kernel_library
+
+    _check_cuda_rows(X)
+    B, n, m = X.shape
     lib, _ = load_kernel_library("jacobi_sweep")
     fn = (lib.tct_jacobi_sweep_c64 if X.dtype == torch.complex64
           else lib.tct_jacobi_sweep_c128)
@@ -156,6 +192,37 @@ def _jacobi_sweep_cuda(X: torch.Tensor):
     return X, measure
 
 
+def _jacobi_sweep_v_cuda(X: torch.Tensor, W: torch.Tensor):
+    """Launch the V-accumulating CUDA sweep kernel on X [B, n, m] and
+    W [B, n, n] (same complex dtype, CUDA, contiguous), rotating both IN
+    PLACE.  Returns (X, W, measure [B] float64).  One launch is one sweep,
+    enqueued on the current stream."""
+    global V_KERNEL_LAUNCHES
+    from .cuda_build import load_kernel_library
+
+    _check_cuda_rows(X)
+    B, n, m = X.shape
+    if (W.device != X.device or W.dtype != X.dtype or W.shape != (B, n, n)
+            or not W.is_contiguous() or W.is_conj()):
+        raise ValueError(f"CUDA V sweep needs W [{B}, {n}, {n}] contiguous, "
+                         f"conj-resolved, {X.dtype} on {X.device}")
+    lib, _ = load_kernel_library("jacobi_sweep")
+    fn = (lib.tct_jacobi_sweep_v_c64 if X.dtype == torch.complex64
+          else lib.tct_jacobi_sweep_v_c128)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sched = _schedule_on(n, X.device)
+    measure = torch.empty(B, dtype=torch.float64, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = fn(X.data_ptr(), W.data_ptr(), sched.data_ptr(),
+                 measure.data_ptr(), B, n, m, stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_sweep_v kernel launch failed: CUDA error {err}")
+    V_KERNEL_LAUNCHES += 1
+    return X, W, measure
+
+
 def _sweep(X: torch.Tensor):
     """The dispatch rule: twin for CPU tensors, kernel for CUDA tensors."""
     if X.device.type == "cpu":
@@ -163,17 +230,29 @@ def _sweep(X: torch.Tensor):
     return _jacobi_sweep_cuda(X)
 
 
-def _rotate_single_pair(X: torch.Tensor) -> torch.Tensor:
+def _sweep_v(X: torch.Tensor, W: torch.Tensor):
+    """The dispatch rule of the V-accumulating sweep, as ``_sweep``."""
+    if X.device.type == "cpu":
+        return _jacobi_sweep_v_torch(X, W)
+    return _jacobi_sweep_v_cuda(X, W)
+
+
+def _rotate_single_pair(X: torch.Tensor):
     """Exact one-rotation Jacobi for a single column pair (n = 2): the
     tournament cycle is undefined for one pair, and one rotation
-    orthogonalizes it.  Same rotation convention as the sweep."""
+    orthogonalizes it.  Same rotation convention as the sweep, computed in
+    X's dtype as the JAX package does.  Returns (X', W) with W the rotation
+    in the V-as-rows layout: V = [[cs, w2], [-w1, cs]], W = V^T."""
     L, R = X[:, :1], X[:, 1:]
     a = (L.real * L.real + L.imag * L.imag).sum(-1)
     b = (R.real * R.real + R.imag * R.imag).sum(-1)
     c = torch.linalg.vecdot(L, R)
     cs, w1, w2, _, _ = _pair_rotation(a, b, c)
-    return torch.cat([cs[..., None] * L - w1[..., None] * R,
-                      w2[..., None] * L + cs[..., None] * R], 1)
+    Xr = torch.cat([cs[..., None] * L - w1[..., None] * R,
+                    w2[..., None] * L + cs[..., None] * R], 1)
+    cs = cs.to(X.dtype)
+    W = torch.stack([torch.cat([cs, -w1], -1), torch.cat([w2, cs], -1)], -2)
+    return Xr, W
 
 
 def _orthogonalize_columns(X: torch.Tensor, max_sweeps: int, tol: float,
@@ -191,7 +270,7 @@ def _orthogonalize_columns(X: torch.Tensor, max_sweeps: int, tol: float,
     if n % 2:
         raise ValueError("row count must be even for the tournament")
     if n == 2:
-        return _rotate_single_pair(X)
+        return _rotate_single_pair(X)[0]
     # JAX compares the float32 measure with float32(tol^2)
     threshold = float(np.float32(tol * tol))
     # one fresh contiguous buffer with the conjugation applied: the CUDA
@@ -204,21 +283,24 @@ def _orthogonalize_columns(X: torch.Tensor, max_sweeps: int, tol: float,
     return X
 
 
-def _sigma_sort_floor(X: torch.Tensor):
-    """Row norms -> descending (stable) sort -> 64*eps*sigma_max resolution
-    floor.  Sigma below the floor is rotation noise in this dtype; both the
-    sigma and (through the returned inv) the row are zeroed.  The floor
-    comes BEFORE normalization.  Returns (S, X_sorted, inv)."""
+def _sigma_sort_floor(X: torch.Tensor, extras=()):
+    """Row norms -> descending (stable) sort (the rows of every ``extras``
+    tensor co-sorted) -> 64*eps*sigma_max resolution floor.  Sigma below the
+    floor is rotation noise in this dtype; both the sigma and (through the
+    returned inv) the row are zeroed.  The floor comes BEFORE normalization.
+    Returns (S, X_sorted, inv, extras_sorted)."""
     S = torch.sqrt((X.real * X.real + X.imag * X.imag).sum(-1))  # [B, n]
     order = torch.argsort(-S, dim=-1, stable=True)
     S = torch.gather(S, -1, order)
     X = torch.gather(X, 1, order[..., None].expand_as(X))
+    extras = tuple(torch.gather(e, 1, order[..., None].expand_as(e))
+                   for e in extras)
     floor = 64.0 * torch.finfo(S.dtype).eps
     keep = S > floor * S[..., :1]
     S = torch.where(keep, S, torch.zeros_like(S))
     inv = torch.where(keep, 1.0 / torch.clamp(S, min=1e-30),
                       torch.zeros_like(S))
-    return S, X, inv
+    return S, X, inv, extras
 
 
 def _ns_polish(V: torch.Tensor, pk: int, iters: int = 12) -> torch.Tensor:
@@ -237,7 +319,7 @@ def _ns_polish(V: torch.Tensor, pk: int, iters: int = 12) -> torch.Tensor:
 def _cols_to_sv(X: torch.Tensor, polish: int):
     """Converged rows X [B, n, m] (= V's columns times sigma) ->
     (S [B, n] descending, V [B, m, n] with normalized columns)."""
-    S, X, inv = _sigma_sort_floor(X)
+    S, X, inv, _ = _sigma_sort_floor(X)
     V = (X * inv[..., None]).transpose(-1, -2)
     if polish:
         V = _ns_polish(V, min(polish, V.shape[-1]))
@@ -288,3 +370,83 @@ def jacobi_sv_plain(theta: torch.Tensor, max_sweeps: int | None = None,
     """``jacobi_sv`` through the torch twin on any device: the plain
     version the CUDA kernel is held against."""
     return _jacobi_sv(theta, max_sweeps, tol, polish, _jacobi_sweep_torch)
+
+
+def _orthogonalize_columns_v(X: torch.Tensor, max_sweeps: int, tol: float,
+                             sweep_v):
+    """``_orthogonalize_columns`` with the V accumulator: sweep X [B, n, m]
+    and W = I [B, n, n] with ``sweep_v`` until converged, one host read of
+    the batch-max measure per sweep.  Returns (X, W)."""
+    B, n, _ = X.shape
+    if n == 2:
+        return _rotate_single_pair(X)
+    W = torch.zeros((B, n, n), dtype=X.dtype, device=X.device)
+    W.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    threshold = float(np.float32(tol * tol))
+    for _ in range(max_sweeps):
+        X, W, measure = sweep_v(X, W)
+        if float(measure.amax().to(torch.float32)) < threshold:
+            break
+    return X, W
+
+
+def _usv_from_rotated(X: torch.Tensor, W: torch.Tensor):
+    """(U [B, m, n], S [B, n], Vh [B, n, n]) from the orthogonalized rows X
+    [B, n, m] and the accumulated rotation W = V^T [B, n, n]: the shared
+    ``_sigma_sort_floor`` convention (W's rows co-sorted), then normalize.
+    Rows below the floor give zero sigma AND zero U columns."""
+    S, X, inv, (W,) = _sigma_sort_floor(X, (W,))
+    U = (X * inv[..., None]).transpose(-1, -2)
+    return U, S, W.conj().resolve_conj()
+
+
+def _jacobi_svd(theta, n_sweeps, tol, sweep_v):
+    if n_sweeps is None:
+        n_sweeps = 24 if theta.dtype == torch.complex128 else 12
+    if tol is None:
+        tol = 1e-14 if theta.dtype == torch.complex128 else 3e-8
+    squeeze = theta.dim() == 2
+    if squeeze:
+        theta = theta[None]
+    lead = theta.shape[:-2]
+    m, n0 = theta.shape[-2:]
+    theta = theta.reshape(-1, m, n0)
+    # odd column counts: one zero column appended.  It never rotates (|c| = 0
+    # pairs get the identity rotation) and rows never move, so it stays at
+    # row n-1 with W row e_{n-1}; dropping both afterwards is exact.
+    n = n0 + n0 % 2
+    # a fresh contiguous X = theta^T: the CUDA kernel rotates it in place
+    X = torch.zeros((theta.shape[0], n, m), dtype=theta.dtype,
+                    device=theta.device)
+    X[:, :n0] = theta.transpose(-1, -2)
+    X, W = _orthogonalize_columns_v(X, n_sweeps, tol, sweep_v)
+    U, S, Vh = _usv_from_rotated(X[:, :n0], W[:, :n0, :n0])
+    U, S, Vh = (U.reshape(*lead, m, n0), S.reshape(*lead, n0),
+                Vh.reshape(*lead, n0, n0))
+    if squeeze:
+        U, S, Vh = U[0], S[0], Vh[0]
+    return U, S, Vh
+
+
+def jacobi_svd(theta: torch.Tensor, n_sweeps: int | None = None,
+               tol: float | None = None):
+    """Full one-sided Jacobi SVD: theta [..., m, n] -> (U [..., m, n],
+    S [..., n], Vh [..., n, n]), any m and n.
+
+    S descending; U's columns for sigma below the 64*eps floor are zero.
+    Sweeps are adaptive, with ``jacobi_sv``'s exit rule: stop once a sweep's
+    max pair overlap is below tol * sigma_max^2, at most ``n_sweeps``
+    (default 12 / tol 3e-8 for complex64, 24 / 1e-14 for complex128).  A CPU
+    tensor runs the torch twin, any other tensor the CUDA V-accumulating
+    kernel (or raises)."""
+    global CUDA_SVD_CALLS
+    if theta.device.type == "cuda" and theta.shape[-1] > 2:
+        CUDA_SVD_CALLS += 1
+    return _jacobi_svd(theta, n_sweeps, tol, _sweep_v)
+
+
+def jacobi_svd_plain(theta: torch.Tensor, n_sweeps: int | None = None,
+                     tol: float | None = None):
+    """``jacobi_svd`` through the torch twin on any device: the plain
+    version the CUDA kernel is held against."""
+    return _jacobi_svd(theta, n_sweeps, tol, _jacobi_sweep_v_torch)

@@ -63,7 +63,7 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
                       axis_name: str = "batch", growth: float = 2.0,
                       cap_svd_method: str | None = None,
                       correlation_site: int | None = None,
-                      device="cpu"):
+                      device="cuda"):
     """Chi-staged batched Floquet evolution: the ensemble production path.
 
     All realizations share ONE chi schedule.  Evolution starts padded at
