@@ -8,8 +8,9 @@ it; it imports only the port, torch, numpy and the numpy-only dense oracle
 tests/exact_reference.py.  Phases:
 
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: both Jacobi sweep kernels from timecrystal_tpu_torch/csrc/
-     (one source, sm_90a);
+  2. build: the Jacobi kernels from timecrystal_tpu_torch/csrc/ (one
+     source, one nvcc, sm_90a): the per-sweep template (kernels 1 and 2) and
+     kernel 2's resident variant, whose ptxas report must show no spills;
   3. kernel 1 (V-free sweep) checks: jacobi_sv on complex64 [4, 512, 512]
      against LAPACK, the kernel against its torch twin (float64 one sweep
      and full calls; float32 at every width of the chi ladder), with times
@@ -17,16 +18,22 @@ tests/exact_reference.py.  Phases:
   4. kernel 2 (V-accumulating sweep) checks: jacobi_svd on the same input
      against LAPACK, the kernel against its twin (float64 one sweep;
      float32 full calls at the TDVP, tall, wide, odd and n=2 shapes), one
-     sweep timed beside its bound and torch.linalg.svd;
+     sweep timed beside its bound and torch.linalg.svd; then its resident
+     variant (one launch per call for one matrix that fits in shared
+     memory): float64 X and W after 1 and 3 sweeps against the twin's,
+     float32 full calls against the twin loop up to the fit limit n=120,
+     LAPACK at [1, 96, 96], and one whole call timed against the per-sweep
+     call it replaces and torch.linalg.svd;
   5. tests/golden/entangling_L10.npz through CustomFloquet on the GPU;
   6. the TEBD path at the real size: the chi-staged ensemble window of
      bench.py's CONFIG (L=40, chi cap 256, R=16, 20 merged periods), then 3
      fixed chi=256 merged periods of one chain (kernel 1 at n=512);
   7. the long-range TDVP path against the dense oracle (L=10, chi=32, 10
      periods, theta = pi and the entangling 0.92 pi, the latter also against
-     a complex128 CPU run of the same TDVP), then at the interaction-range diagram's widths (L=12,
-     chi=48, 24 periods, alpha in {1.5, None}; kernel 2 at n=96), with a
-     profile of its time.
+     a complex128 CPU run of the same TDVP), then at the interaction-range
+     diagram's widths (L=12, chi=48, 24 periods, alpha in {1.5, None};
+     every split on the resident kernel 2 at n=96), with a profile of its
+     time.
 
 Any failed check raises, so the exit code is not 0.  The last two lines are
 a JSON summary of both kernels and the device JSON.
@@ -34,6 +41,7 @@ a JSON summary of both kernels and the device JSON.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -55,6 +63,7 @@ RANGE = dict(L=12, chi=48, n_periods=24, substeps=2, J=1.0, h=0.3, tau=1.0,
 # the card's peaks (H100 SXM data sheet): HBM bytes/s, float32 and float64
 # FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
+SMS = 132                                    # streaming multiprocessors
 
 
 def _check(cond: bool, what: str) -> None:
@@ -153,25 +162,41 @@ def phase_device():
     return name, smi_line
 
 
+def _kernel_label(ln: str) -> str:
+    """Short name of the kernel instantiation whose mangled name is in ln."""
+    t = "f32" if "kernelIf" in ln else "f64"
+    if "jacobi_svd_resident_kernel" in ln:
+        return f"jacobi_svd_resident<{t}, {16 if 'Li16E' in ln else 8}>"
+    return ("jacobi_sweep_v" if "Lb1E" in ln else "jacobi_sweep") + f"<{t}>"
+
+
 def phase_build():
     from timecrystal_tpu_torch.ops.cuda_build import load_kernel_library
 
     t0 = time.perf_counter()
     _, info = load_kernel_library("jacobi_sweep")
-    # pair each kernel instantiation (jacobi_sweep_kernel<T, kWithV>) with its
-    # ptxas register line
-    ptxas, label = [], None
+    # pair each kernel instantiation (jacobi_sweep_kernel<T, kWithV>,
+    # jacobi_svd_resident_kernel<T, kGroup>) with its ptxas register and
+    # spill lines
+    ptxas, spills, label = {}, {}, None
     for ln in info.log.splitlines():
-        if "Compiling entry function" in ln:
-            t = "f32" if "kernelIfL" in ln else "f64"
-            label = ("jacobi_sweep_v" if "Lb1E" in ln else "jacobi_sweep") + f"<{t}>"
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            label = _kernel_label(ln)
+        elif "spill stores" in ln and label:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            spills[label] = nums[1] + nums[2]     # stack frame, stores, loads
         elif "registers" in ln and label:
-            ptxas.append(f"{label}: {ln.split(':', 1)[1].strip()}")
+            ptxas[label] = ln.split(":", 1)[1].strip()
     print(f"[build] {info.path.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {info.seconds:.1f} s): {' '.join(info.command[1:4])}; "
-          f"ptxas: {' | '.join(ptxas)}", flush=True)
+          f"(nvcc {info.seconds:.1f} s): {' '.join(info.command[1:4])}; ptxas: "
+          f"{' | '.join(f'{k}: {v}, spill bytes {spills.get(k)}' for k, v in ptxas.items())}",
+          flush=True)
     _check("arch=compute_90a,code=sm_90a" in info.command, "not built for sm_90a")
-    _check(info.seconds == 0.0 or len(ptxas) == 4, "expected 4 kernel instantiations")
+    if info.seconds:
+        _check(len(ptxas) == 8, f"expected 8 kernel instantiations, got {list(ptxas)}")
+        resident = [k for k in ptxas if k.startswith("jacobi_svd_resident")]
+        _check(len(resident) == 4 and all(spills.get(k) == 0 for k in resident),
+               f"the resident kernel spills: {spills}")
 
 
 def phase_kernels():
@@ -350,22 +375,21 @@ def phase_v_kernels():
     _check(meas_rel < 1e-9, f"f64 V sweep measure differs: {meas_rel}")
 
     # (c) float32 full calls run to convergence, kernel against twin, by S and
-    # by the U S Vh reconstruction
+    # by the U S Vh reconstruction ([1, 96, 96] fits the resident variant,
+    # the others run the per-sweep one)
     worst = 0.0
     for shape in ((1, 96, 96), (1, 128, 128), (2, 96, 64), (2, 64, 96),
                   (2, 96, 95), (4, 5, 2)):
         M = torch.randn(*shape, dtype=torch.complex64, device="cuda",
                         generator=gen)
-        l0 = J.V_KERNEL_LAUNCHES
-        Uk, Sk, Vhk = J.jacobi_svd(M, n_sweeps=24)
-        sw = J.V_KERNEL_LAUNCHES - l0
+        (Uk, Sk, Vhk), variant, sw = _kernel2_call(M, n_sweeps=24)
         Ut, St, Vht = J.jacobi_svd_plain(M, n_sweeps=24)
         err = float((Sk - St).abs().max() / St.max())
         worst = max(worst, float((Sk - St).abs().max()))
         rec_k, rec_t = _usv_rel(Uk, Sk, Vhk, M), _usv_rel(Ut, St, Vht, M)
         print(f"[v-kernel-vs-twin f32] {list(shape)}: S err {err:.2e} x "
               f"sigma_max (< 1e-5), |U S Vh - M|/|M| kernel {rec_k:.2e}, twin "
-              f"{rec_t:.2e} (< 1e-5), {sw} sweeps", flush=True)
+              f"{rec_t:.2e} (< 1e-5), {sw} sweeps ({variant})", flush=True)
         _check(err < 1e-5, f"f32 kernel-2 S at {shape} differs: {err}")
         _check(rec_k < 1e-5 and rec_t < 1e-5, f"f32 USVh at {shape}")
         _check(sw > 0 or shape[-1] == 2, f"kernel 2 not launched at {shape}")
@@ -390,10 +414,180 @@ def phase_v_kernels():
               f"{ms[('twin', B, n)]:.3f} ms, bound {bound:.5f} ms ({by}; FP64 "
               f"FLOPs {f64:.5f} ms), torch.linalg.svd "
               f"{ms[('library', B, n)]:.3f} ms", flush=True)
-    return dict(max_abs_err=worst, ms=ms[("kernel", 1, 96)],
+    return dict(max_abs_err=worst, per_sweep_ms=ms[("kernel", 1, 96)],
                 plain_ms=ms[("twin", 1, 96)], bound_ms=ms[("bound", 1, 96)][0],
                 bound_by=ms[("bound", 1, 96)][1],
                 library_ms=ms[("library", 1, 96)])
+
+
+def _kernel2_call(M, svd=None, **kwargs):
+    """(svd(M) on the card, jacobi_svd by default; the kernel-2 variant that
+    ran; its sweeps): the resident kernel's sweeps are read from its device
+    counter, the per-sweep kernel's are its launches."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    counter = J.resident_sweep_counter(M.device)
+    l0, r0, s0 = J.V_KERNEL_LAUNCHES, J.V_RESIDENT_LAUNCHES, int(counter)
+    usv = (svd or J.jacobi_svd)(M, **kwargs)
+    resident = J.V_RESIDENT_LAUNCHES - r0
+    per_sweep = J.V_KERNEL_LAUNCHES - l0 - resident
+    _check(resident + per_sweep == 0 or (resident == 1) != (per_sweep > 0),
+           "one jacobi_svd call ran both kernel-2 variants")
+    if resident:
+        return usv, "resident", int(counter) - s0
+    return usv, "per-sweep", per_sweep
+
+
+def _host_loop_svd(M, sweep_v, n_sweeps=None):
+    """jacobi_svd(M) with the sweep loop on the host, one sweep_v call per
+    sweep, whatever the shape."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    return J._jacobi_svd(M, n_sweeps, None, functools.partial(
+        J._orthogonalize_columns_v, sweep_v=sweep_v))
+
+
+def _twin_svd(M, n_sweeps=None):
+    """jacobi_svd_plain(M) with the number of sweeps its twin loop ran."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    count = [0]
+
+    def sweep_v(X, W):
+        count[0] += 1
+        return J._jacobi_sweep_v_torch(X, W)
+
+    return _host_loop_svd(M, sweep_v, n_sweeps), count[0]
+
+
+def _per_sweep_svd(M):
+    """jacobi_svd through the per-sweep kernel 2: the call the resident
+    kernel replaces (one launch and one host read per sweep)."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    return _host_loop_svd(M, J._sweep_v)
+
+
+def phase_v_resident():
+    """Kernel 2's resident variant: one launch runs a whole jacobi_svd sweep
+    loop of one matrix held in shared memory."""
+    import torch
+
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    counter = J.resident_sweep_counter("cuda:0")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    # (a) float64 with no exit (tol 0): X and W after 1 and 3 sweeps against
+    # as many twin sweeps from W = I; rows of unit norm on average, so the
+    # absolute bound is a relative one
+    for n, m in ((64, 64), (80, 64)):
+        X = torch.randn(1, n, m, dtype=torch.complex128, device="cuda",
+                        generator=gen) / np.sqrt(m)
+        W0 = torch.eye(n, dtype=X.dtype, device="cuda")[None].contiguous()
+        for n_sweeps in (1, 3):
+            s0 = int(counter)
+            Xk, Wk = J._jacobi_svd_resident_cuda(X.clone(), n_sweeps, 0.0)
+            ran = int(counter) - s0
+            Xt, Wt = X.clone(), W0.clone()
+            for _ in range(n_sweeps):
+                Xt, Wt, _ = J._jacobi_sweep_v_torch(Xt, Wt)
+            dX, dW = float((Xk - Xt).abs().max()), float((Wk - Wt).abs().max())
+            print(f"[v-resident-vs-twin f64] X [1, {n}, {m}], {n_sweeps} "
+                  f"sweep(s) ({ran} run): max |dX| {dX:.2e}, max |dW| {dW:.2e} "
+                  f"(< 1e-12)", flush=True)
+            _check(ran == n_sweeps, f"resident kernel ran {ran} of {n_sweeps} sweeps")
+            _check(dX < 1e-12 and dW < 1e-12,
+                   f"f64 resident sweeps differ from the twin: {dX} {dW}")
+
+    # (b) float32 full calls to convergence (n_sweeps=24) against the twin
+    # loop, at the TDVP shapes, tall, wide, odd, the fit limit and n=4
+    worst = 0.0
+    for shape in ((1, 96, 96), (1, 64, 64), (1, 96, 64), (1, 64, 96),
+                  (1, 96, 95), (1, 120, 120), (1, 4, 4)):
+        M = torch.randn(*shape, dtype=torch.complex64, device="cuda",
+                        generator=gen)
+        (Uk, Sk, Vhk), variant, sw = _kernel2_call(M, n_sweeps=24)
+        (Ut, St, Vht), sw_t = _twin_svd(M, 24)
+        err = float((Sk - St).abs().max() / St.max())
+        worst = max(worst, float((Sk - St).abs().max()))
+        rec_k, rec_t = _usv_rel(Uk, Sk, Vhk, M), _usv_rel(Ut, St, Vht, M)
+        print(f"[v-resident-vs-twin f32] {list(shape)}: S err {err:.2e} x "
+              f"sigma_max (< 1e-5), |U S Vh - M|/|M| kernel {rec_k:.2e}, twin "
+              f"{rec_t:.2e} (< 1e-5); {sw} sweeps, twin {sw_t} (within 1); "
+              f"{variant} kernel", flush=True)
+        _check(err < 1e-5, f"f32 resident S at {shape} differs: {err}")
+        _check(rec_k < 1e-5 and rec_t < 1e-5, f"f32 resident USVh at {shape}")
+        _check(abs(sw - sw_t) <= 1, f"resident sweeps {sw} vs twin {sw_t} at {shape}")
+        _check(variant == "resident", f"{shape} did not run the resident kernel")
+
+    # (c) LAPACK acceptance at the TDVP shape: complex64 [1, 96, 96] with a
+    # logspace(0,-7) spectrum, default 12 sweeps; the per-sweep variant on the
+    # same input beside it
+    rng = np.random.RandomState(7)
+    n = 96
+    q1, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
+    q2, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
+    M = ((q1 * np.logspace(0, -7, n)) @ q2.conj().T).astype(np.complex64)[None]
+    Mt = torch.as_tensor(M, device="cuda")
+    Sref = np.linalg.svd(M.astype(np.complex128), compute_uv=False)
+    eye = torch.eye(n, dtype=torch.complex128, device="cuda")
+    res = {}
+    for variant, call in (("resident", lambda: _kernel2_call(Mt)),
+                          ("per-sweep", lambda: _kernel2_call(Mt, _per_sweep_svd))):
+        (U, S, Vh), _, sw = call()
+        Vh64 = Vh.to(torch.complex128)
+        res[variant] = (float(np.max(np.abs(S.cpu().numpy() - Sref)) / Sref.max()),
+                        float((Vh64 @ Vh64.mH - eye).abs().max()),
+                        _usv_rel(U, S, Vh, Mt), sw)
+    serr, orth, rec, sw = res["resident"]
+    print(f"[v-resident-vs-lapack] complex64 [1, 96, 96] logspace(0,-7): S err "
+          f"{serr:.3e} x sigma_max (< 5e-5), max |V^H V - I| {orth:.2e} (< 5e-5), "
+          f"|U S Vh - M|/|M| {rec:.2e} (< 1e-4), {sw} sweeps; per-sweep variant: "
+          f"S err {res['per-sweep'][0]:.3e}, |V^H V - I| {res['per-sweep'][1]:.2e}, "
+          f"rec {res['per-sweep'][2]:.2e}, {res['per-sweep'][3]} sweeps", flush=True)
+    _check(serr < 5e-5, f"resident S error {serr} vs LAPACK")
+    _check(orth < 5e-5, f"resident V not orthonormal: {orth}")
+    _check(rec < 1e-4, f"resident reconstruction {rec}")
+
+    # (d) whole calls at [1, 96, 96] on a TDVP-like theta, CUDA events: the
+    # resident call, the per-sweep call it replaces and torch.linalg.svd; ms
+    # per sweep from fixed sweep counts with no exit, (t(9) - t(1)) / 8
+    M = _tebd_like(gen, 1, n, torch.complex64)
+    _, _, sweeps = _kernel2_call(M)
+    _, _, sweeps_ps = _kernel2_call(M, _per_sweep_svd)
+    call_ms = _event_ms(J.jacobi_svd, [(M,)] * 6)
+    ps_ms = _event_ms(_per_sweep_svd, [(M,)] * 6)
+    lib_ms = _library_ms(M)
+    X = M.transpose(-1, -2).contiguous()
+    t1, t9 = (_event_ms(J._jacobi_svd_resident_cuda,
+                        [(X.clone(), s, 0.0) for _ in range(6)]) for s in (1, 9))
+    ms_sweep = (t9 - t1) / 8
+    bound, by, f64 = sweep_bound(1, n, n, with_v=True)
+    print(f"[v-call time] complex64 [1, 96, 96] TDVP-like: resident call "
+          f"{call_ms:.3f} ms ({sweeps} sweeps), per-sweep call {ps_ms:.3f} ms "
+          f"({sweeps_ps} sweeps), torch.linalg.svd {lib_ms:.3f} ms; resident "
+          f"{ms_sweep:.4f} ms per sweep (t(1 sweep) {t1:.4f} ms, t(9) {t9:.4f} "
+          f"ms); card-wide bound {sweeps * bound:.5f} ms ({sweeps} x {bound:.5f}, "
+          f"{by}), one-SM FP64 floor {sweeps * f64 * SMS:.4f} ms ({sweeps} x "
+          f"{f64 * SMS:.4f})", flush=True)
+    _check(call_ms < ps_ms, f"resident call {call_ms} ms not faster than the "
+           f"per-sweep call {ps_ms} ms")
+    # the float <-> double conversions' share: complex64 rows are converted
+    # on every read and write, complex128 rows never: the same sweep in both
+    # at [1, 64, 64], where complex128 fits too
+    per_dtype = {}
+    for dtype in (torch.complex64, torch.complex128):
+        X = torch.randn(1, 64, 64, dtype=dtype, device="cuda", generator=gen)
+        t1, t9 = (_event_ms(J._jacobi_svd_resident_cuda,
+                            [(X.clone(), s, 0.0) for _ in range(6)]) for s in (1, 9))
+        per_dtype[dtype] = (t9 - t1) / 8
+    print(f"[v-call time] resident ms per sweep at [1, 64, 64]: complex64 "
+          f"{per_dtype[torch.complex64]:.4f}, complex128 "
+          f"{per_dtype[torch.complex128]:.4f} (one-SM FP64 floor "
+          f"{sweep_bound(1, 64, 64, with_v=True)[2] * SMS:.4f})", flush=True)
+    return dict(max_abs_err=worst, ms=ms_sweep, call_ms=call_ms,
+                sweeps_per_call=sweeps)
 
 
 def phase_golden():
@@ -555,11 +749,14 @@ def phase_tdvp_oracle():
         traces, _, info = model.evolve(psi0, n)
         return model, traces, info
 
+    counter = J.resident_sweep_counter("cuda:0")
     for frac in (1.0, 0.92):
         theta = frac * float(np.pi)
-        l0, c0 = J.V_KERNEL_LAUNCHES, J.CUDA_SVD_CALLS
+        l0, r0, c0 = J.V_KERNEL_LAUNCHES, J.V_RESIDENT_LAUNCHES, J.CUDA_SVD_CALLS
+        s0 = int(counter)
         model, traces, info = run(theta, torch.complex64, "cuda")
         launches, calls = J.V_KERNEL_LAUNCHES - l0, J.CUDA_SVD_CALLS - c0
+        resident, sweeps = J.V_RESIDENT_LAUNCHES - r0, int(counter) - s0
         sz, le = _oracle_traces(oracle, L, fitted_couplings(L, 1.0, alpha),
                                 model.h_fields, tau, theta, n)
         d_sz, d_le = _trace_err(traces, sz, le)
@@ -567,6 +764,9 @@ def phase_tdvp_oracle():
                 f"tau={tau} theta={frac} pi, {n} periods, complex64: max |d sz| "
                 f"{d_sz:.2e}, max |d LE| {d_le:.2e}")
         _check(launches > 0, f"the TDVP oracle leg at {frac} pi launched no kernel 2")
+        _check(resident == calls == launches,
+               f"not every split at {frac} pi ran the resident kernel: {calls} "
+               f"calls, {resident} resident of {launches} launches")
         if frac == 1.0:
             bound = (1e-4, 1e-4)
             line += " (< 1e-4)"
@@ -582,10 +782,10 @@ def phase_tdvp_oracle():
                      f"(< 1e-5)")
             _check(c_sz < 1e-5 and c_le < 1e-5,
                    f"TDVP at {frac} pi differs from the complex128 CPU run")
-            _check(launches > calls, f"rank-1 splits only at {frac} pi")
-        print(f"{line}; {calls} SVD calls, {launches} kernel-2 launches "
-              f"({launches / max(calls, 1):.2f} sweeps per call); "
-              f"{info['periods_per_second']:.2f} periods/s", flush=True)
+            _check(sweeps > calls, f"rank-1 splits only at {frac} pi")
+        print(f"{line}; {calls} SVD calls, {resident} resident kernel-2 "
+              f"launches, {sweeps} sweeps ({sweeps / max(calls, 1):.2f} per "
+              f"call); {info['periods_per_second']:.2f} periods/s", flush=True)
         _check(d_sz < bound[0] and d_le < bound[1],
                f"TDVP trace mismatch with the oracle at {frac} pi")
 
@@ -603,7 +803,10 @@ def phase_range():
     c = RANGE
     n_runs = len(c["alphas"])
     torch.cuda.reset_peak_memory_stats()
-    J.V_KERNEL_LAUNCHES = 0          # the main path's count starts here
+    counter = J.resident_sweep_counter("cuda:0")
+    counter.zero_()                  # the main path's counts start here
+    J.V_KERNEL_LAUNCHES = 0
+    J.V_RESIDENT_LAUNCHES = 0
     J.CUDA_SVD_CALLS = 0
     runs, evolve = [], LR.LongRangeKickedIsing.evolve
 
@@ -629,6 +832,7 @@ def phase_range():
     finally:
         LR.LongRangeKickedIsing.evolve = evolve
     launches, calls = J.V_KERNEL_LAUNCHES, J.CUDA_SVD_CALLS
+    resident, sweeps = J.V_RESIDENT_LAUNCHES, int(counter)
     syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
     n_per = n_runs * c["n_periods"]
     _check(len(runs) == n_runs, f"{len(runs)} runs recorded, not {n_runs}")
@@ -641,18 +845,21 @@ def phase_range():
         _check(float(le.min()) >= 0.0 and float(le.max()) <= 1.0 + 1e-5,
                f"LE outside [0, 1]: {le.min()} {le.max()}")
     _check(bool(np.all(np.isfinite(out["a2t"]))), "non-finite A2T")
-    _check(launches > 0, "the range scan launched no kernel 2")
+    _check(calls > 0 and resident == calls == launches,
+           f"the range scan did not run the resident kernel on every split: "
+           f"{calls} SVD calls, {resident} resident of {launches} kernel-2 launches")
     rates = [info["periods_per_second"] for _, _, info in runs]
     print(f"[range] L={c['L']} chi={c['chi']} (n={2 * c['chi']}) n_exp=12 "
           f"substeps={c['substeps']} theta=0.95 pi, {c['n_periods']} periods "
           f"x alpha {list(c['alphas'])}: A2T {np.round(out['a2t'], 4).tolist()}; "
           f"{n_per / wall:.3f} periods/s ({wall:.1f} s; per run "
           f"{[round(r, 3) for r in rates]}); {calls} SVD calls "
-          f"({calls / n_per:.1f} per period), {launches} sweeps "
-          f"({launches / max(calls, 1):.2f} per call); host syncs "
-          f"{syncs} ({syncs / n_per:.1f} per period); peak memory "
+          f"({calls / n_per:.1f} per period), all on the resident kernel 2 "
+          f"({resident} launches), {sweeps} sweeps ({sweeps / max(calls, 1):.2f} "
+          f"per call, device counter); host syncs {syncs} "
+          f"({syncs / n_per:.1f} per period); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
-    return launches, wall / n_per
+    return resident, wall / n_per
 
 
 def phase_range_profile(period_s: float):
@@ -682,8 +889,8 @@ def phase_range_profile(period_s: float):
         psi = model.floquet_step(psi)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    classes = {"jacobi sweep (kernel 2)": 0.0, "eigh (cuSOLVER)": 0.0,
-               "matmul / einsum": 0.0, "other": 0.0}
+    classes = {"kernel 2 resident": 0.0, "kernel 2 per-sweep": 0.0,
+               "eigh (cuSOLVER)": 0.0, "matmul / einsum": 0.0, "other": 0.0}
     n_sync = 0
     for evt in prof.key_averages():
         if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
@@ -692,8 +899,10 @@ def phase_range_profile(period_s: float):
             continue
         t = float(getattr(evt, "self_device_time_total", 0.0)) / 1e3   # ms
         name = evt.key.lower()
-        if "jacobi_sweep" in name:
-            classes["jacobi sweep (kernel 2)"] += t
+        if "jacobi_svd_resident" in name:
+            classes["kernel 2 resident"] += t
+        elif "jacobi_sweep" in name:
+            classes["kernel 2 per-sweep"] += t
         elif any(k in name for k in ("syevd", "sytrd", "stedc", "ormtr",
                                      "syevj", "heevd", "hetrd", "lapack",
                                      "eigh", "steqr", "sterf", "larf")):
@@ -728,6 +937,8 @@ def main() -> int:
     phase_build()
     k1 = phase_kernels()
     k2 = phase_v_kernels()
+    resident = phase_v_resident()
+    k2.update(resident, max_abs_err=max(k2["max_abs_err"], resident["max_abs_err"]))
     phase_golden()
     k1["launches"] = phase_real_size()
     phase_tdvp_oracle()
@@ -738,13 +949,17 @@ def main() -> int:
     source = "timecrystal_tpu_torch/csrc/jacobi_sweep.cu"
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    # kernel 2 is reported as the main path runs it, the resident variant:
+    # ms per sweep and per call at [1, 96, 96], launches one per SVD call;
+    # per_sweep_ms is the per-sweep variant's sweep on the same shape
     print(json.dumps({"kernels": [
         {"name": "jacobi_sweep", "route": "cuda", "source": source,
          "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:159",
          **{k: k1[k] for k in keys}},
-        {"name": "jacobi_sweep_v", "route": "cuda", "source": source,
+        {"name": "jacobi_svd_resident", "route": "cuda", "source": source,
          "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:75",
-         **{k: k2[k] for k in keys}}]}))
+         **{k: k2[k] for k in keys + ("call_ms", "sweeps_per_call",
+                                      "per_sweep_ms")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

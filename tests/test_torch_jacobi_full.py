@@ -14,6 +14,9 @@ matrix are any basis of it.  Shapes: square, tall, wide, odd width (the
 zero-pad column), n = 2 (the analytic pair) and two leading axes.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from timecrystal_tpu.ops import csvd as jcsvd
 from timecrystal_tpu.ops.cpx import C
 from timecrystal_tpu.ops.pallas.jacobi_svd import jacobi_svd as jax_jacobi_svd
 from timecrystal_tpu_torch.ops import csvd as tcsvd
+from timecrystal_tpu_torch.ops import cuda_build
 from timecrystal_tpu_torch.ops import jacobi_svd as J
 
 TOL = 1e-10
@@ -139,26 +143,106 @@ def test_v_sweep_twin_rotates_equal_norm_parallel_columns():
 
 def test_non_cpu_tensor_goes_to_the_cuda_wrapper(monkeypatch):
     """The dispatch rule: a tensor that is not on the CPU (here 'meta') goes
-    to the CUDA wrapper, which raises; it never reaches the twin or LAPACK,
-    and no launch is counted."""
+    to a CUDA wrapper, which raises; it never reaches the twin or LAPACK,
+    and no launch is counted.  One matrix that fits ([1, 8, 6]) goes to the
+    resident kernel's wrapper, a batch ([2, 8, 6]) to the per-sweep one."""
     def boom(*args, **kwargs):
         raise AssertionError("fell back off the CUDA route")
 
     monkeypatch.setattr(J, "_jacobi_sweep_v_torch", boom)
+    monkeypatch.setattr(J, "_orthogonalize_v_plain", boom)
     monkeypatch.setattr(torch.linalg, "svd", boom)
-    before = J.V_KERNEL_LAUNCHES
-    M = torch.empty((2, 8, 6), dtype=torch.complex64, device="meta")
-    for call in (lambda: J.jacobi_svd(M),
-                 lambda: tcsvd.csvd(M),
-                 lambda: tcsvd.csvd(M, method="jacobi"),
-                 lambda: tcsvd.csvd_topk(M, 2, method="jacobi_full"),
-                 lambda: tcsvd.csvd_topk(M, 2, method="auto")):
-        with pytest.raises(ValueError, match="CUDA sweep needs a CUDA tensor"):
-            call()
-    assert J.V_KERNEL_LAUNCHES == before
+    before = (J.V_KERNEL_LAUNCHES, J.V_RESIDENT_LAUNCHES)
+    for shape, wrapper in (((2, 8, 6), "CUDA sweep"),
+                           ((1, 8, 6), "CUDA resident sweep loop")):
+        M = torch.empty(shape, dtype=torch.complex64, device="meta")
+        for call in (lambda: J.jacobi_svd(M),
+                     lambda: tcsvd.csvd(M),
+                     lambda: tcsvd.csvd(M, method="jacobi"),
+                     lambda: tcsvd.csvd_topk(M, 2, method="jacobi_full"),
+                     lambda: tcsvd.csvd_topk(M, 2, method="auto")):
+            with pytest.raises(ValueError, match=f"^{wrapper} needs a CUDA tensor"):
+                call()
+    assert (J.V_KERNEL_LAUNCHES, J.V_RESIDENT_LAUNCHES) == before
     with pytest.raises(ValueError, match="CUDA"):
         J._jacobi_sweep_v_cuda(torch.zeros(1, 4, 4, dtype=torch.complex64),
                                torch.zeros(1, 4, 4, dtype=torch.complex64))
+
+
+# theta shape [B, m, n0], dtype, whether the resident kernel takes it: the
+# limits of the fit rule (complex64 up to n = 120, complex128 up to n = 84,
+# one matrix only), odd widths counted at their zero-padded even n
+RESIDENT_FITS = {
+    "c64_n96": ((1, 96, 96), torch.complex64, True),
+    "c64_n120_limit": ((1, 120, 120), torch.complex64, True),
+    "c64_n122": ((1, 122, 122), torch.complex64, False),
+    "c64_batch2": ((2, 96, 96), torch.complex64, False),
+    "c128_n96": ((1, 96, 96), torch.complex128, False),
+    "c128_n64": ((1, 64, 64), torch.complex128, True),
+    "c64_odd95_padded_to_96": ((1, 96, 95), torch.complex64, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESIDENT_FITS))
+def test_resident_fit_rule_and_dispatch(case, monkeypatch):
+    """_resident_fits (B == 1 and n (m + n) itemsize + (n + 32) 8 <= 232448
+    bytes) at the rule's edges, and jacobi_svd's dispatch of a CUDA-like
+    (meta) tensor by it: X [B, n, m] with n the padded width reaches the
+    resident wrapper when it fits and the per-sweep loop otherwise."""
+    shape, dtype, fits = RESIDENT_FITS[case]
+    B, m, n0 = shape
+    n = n0 + n0 % 2
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert J._resident_fits(B, n, m, itemsize) is fits
+
+    class Reached(Exception):
+        pass
+
+    def reached(name):
+        def wrapper(X, *args, **kwargs):
+            raise Reached(name, tuple(X.shape))
+        return wrapper
+
+    monkeypatch.setattr(J, "_jacobi_svd_resident_cuda", reached("resident"))
+    monkeypatch.setattr(J, "_orthogonalize_columns_v", reached("per-sweep"))
+    with pytest.raises(Reached) as info:
+        J.jacobi_svd(torch.empty(shape, dtype=dtype, device="meta"))
+    assert info.value.args == ("resident" if fits else "per-sweep", (B, n, m))
+
+
+@pytest.mark.parametrize("dtype,tol,n_sweeps", [(torch.complex64, 3e-8, 12),
+                                                (torch.complex128, 1e-14, 24)])
+def test_resident_wrapper_passes_the_host_exit_threshold(dtype, tol, n_sweeps,
+                                                         monkeypatch):
+    """The resident kernel tests the host loop's exit rule on the device, so
+    its wrapper must pass the very float32 threshold the host loop compares
+    with: np.float32(tol * tol) for jacobi_svd's default tol of each dtype,
+    with the default sweep cap.  The C entry is replaced by a recorder that
+    reports a failed launch: the wrapper raises and counts nothing."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 1                                  # cudaErrorInvalidValue
+
+    lib = types.SimpleNamespace(tct_jacobi_svd_resident_c64=entry,
+                                tct_jacobi_svd_resident_c128=entry)
+    monkeypatch.setattr(cuda_build, "load_kernel_library",
+                        lambda name: (lib, None))
+    monkeypatch.setattr(J, "_check_cuda_rows", lambda X, what="": None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    before = (J.V_KERNEL_LAUNCHES, J.V_RESIDENT_LAUNCHES)
+    with pytest.raises(RuntimeError, match="jacobi_svd_resident kernel launch"):
+        J.jacobi_svd(torch.empty((1, 8, 6), dtype=dtype, device="meta"))
+    (args,) = calls
+    n, m, max_sweeps, threshold = args[4:8]
+    assert (n, m, max_sweeps) == (6, 8, n_sweeps)
+    assert threshold == np.float32(tol * tol) == J._exit_threshold(tol)
+    assert np.float32(threshold) == threshold     # exact as a C float
+    assert (J.V_KERNEL_LAUNCHES, J.V_RESIDENT_LAUNCHES) == before
 
 
 def test_hermitian_factorizations_match_jax():

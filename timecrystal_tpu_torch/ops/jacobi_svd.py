@@ -14,9 +14,18 @@ other tensor goes to the CUDA wrapper, which launches the kernel or raises;
 there is no fallback between the two.  ``KERNEL_LAUNCHES`` and
 ``V_KERNEL_LAUNCHES`` count kernel launches and nothing else.
 
-Everything around the sweep -- the sweep-until-converged loop, the sigma
-sort and 64*eps floor, column normalization and the Newton-Schulz polish --
-is plain torch, as it is plain XLA outside the Pallas kernel in JAX.
+``jacobi_svd`` has two CUDA kernels, picked by shape (``_orthogonalize_v``):
+one matrix whose X and W fit in one SM's shared memory (``_resident_fits``:
+complex64 up to n = 120, complex128 up to n = 84 -- TDVP's splits) runs the
+resident kernel, which keeps the matrix in shared memory and runs the whole
+sweep loop and its exit test in one launch; every other CUDA call runs the
+per-sweep kernel, one launch and one host read of the exit measure per
+sweep.  On a CPU tensor both are the twin loop.
+
+Everything around the sweep -- the sweep-until-converged loop of the
+per-sweep kernels, the sigma sort and 64*eps floor, column normalization
+and the Newton-Schulz polish -- is plain torch, as it is plain XLA outside
+the Pallas kernel in JAX.
 
 Layout: the kernels orthogonalize rows.  ``jacobi_sv`` works on the columns
 of A = theta^H: column j of A is row j of X = conj(theta), so X [B, n, m] is
@@ -30,6 +39,7 @@ Vh = conj(W).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,13 +48,20 @@ import torch
 KERNEL_LAUNCHES = 0
 # jacobi_sv calls that ran the sweep loop on a CUDA tensor
 CUDA_SV_CALLS = 0
-# V-accumulating sweep-kernel launches (one per sweep of jacobi_svd on a
-# CUDA tensor); the twin never counts
+# V-accumulating kernel launches on a CUDA tensor, of either kernel: one per
+# sweep of the per-sweep kernel, one per jacobi_svd call of the resident
+# kernel; the twin never counts
 V_KERNEL_LAUNCHES = 0
+# launches of the resident kernel alone (one per jacobi_svd call it takes)
+V_RESIDENT_LAUNCHES = 0
 # jacobi_svd calls that ran the sweep loop on a CUDA tensor
 CUDA_SVD_CALLS = 0
 
+# shared memory one block can use on Hopper (sm_90)
+SHARED_BYTES_PER_BLOCK = 232448
+
 _SCHEDULES: dict = {}
+_RESIDENT_SWEEPS: dict = {}
 
 
 def _pair_rotation(a, b, c):
@@ -151,19 +168,19 @@ def _schedule_on(n: int, device: torch.device) -> torch.Tensor:
     return _SCHEDULES[key]
 
 
-def _check_cuda_rows(X: torch.Tensor) -> None:
+def _check_cuda_rows(X: torch.Tensor, what: str = "CUDA sweep") -> None:
     """What the CUDA sweep kernels take: a contiguous, conj-resolved complex
     [B, n, m] CUDA tensor with even n >= 4."""
     if X.device.type != "cuda":
-        raise ValueError(f"CUDA sweep needs a CUDA tensor, got {X.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {X.device}")
     if X.dtype not in (torch.complex64, torch.complex128):
-        raise TypeError(f"CUDA sweep takes complex64/complex128, got {X.dtype}")
+        raise TypeError(f"{what} takes complex64/complex128, got {X.dtype}")
     if X.dim() != 3 or not X.is_contiguous() or X.is_conj():
-        raise ValueError("CUDA sweep needs a contiguous, conj-resolved "
+        raise ValueError(f"{what} needs a contiguous, conj-resolved "
                          "[B, n, m] tensor")
     n = X.shape[1]
     if n % 2 or n < 4:
-        raise ValueError(f"CUDA sweep needs even n >= 4, got n={n}")
+        raise ValueError(f"{what} needs even n >= 4, got n={n}")
 
 
 def _jacobi_sweep_cuda(X: torch.Tensor):
@@ -223,6 +240,73 @@ def _jacobi_sweep_v_cuda(X: torch.Tensor, W: torch.Tensor):
     return X, W, measure
 
 
+def _resident_fits(B: int, n: int, m: int, itemsize: int) -> bool:
+    """The resident kernel's fit rule, for X [B, n, m] of complex items of
+    ``itemsize`` bytes (n already padded even): one matrix (one CTA holds it,
+    and the exit reads the batch max), with X [n, m] and W [n, n], the norms
+    [n] and 32 doubles of reduction scratch in one block's shared memory."""
+    return (B == 1 and n * (m + n) * itemsize + (n + 32) * 8
+            <= SHARED_BYTES_PER_BLOCK)
+
+
+def resident_sweep_counter(device) -> torch.Tensor:
+    """The int64 counter on ``device`` (a CUDA device with its index) into
+    which the resident kernel's wrapper adds each call's sweep count on the
+    device, so that counting reads nothing on the host.  Reset it with
+    ``zero_()``."""
+    key = str(torch.device(device))
+    if key not in _RESIDENT_SWEEPS:
+        _RESIDENT_SWEEPS[key] = torch.zeros((), dtype=torch.int64, device=device)
+    return _RESIDENT_SWEEPS[key]
+
+
+def _exit_threshold(tol: float) -> float:
+    """The sweep loop's exit threshold: JAX compares the float32 measure with
+    float32(tol^2)."""
+    return float(np.float32(tol * tol))
+
+
+def _jacobi_svd_resident_cuda(X: torch.Tensor, n_sweeps: int, tol: float):
+    """Launch the resident CUDA kernel on X [1, n, m] (complex64/128, CUDA,
+    contiguous, within ``_resident_fits``): ONE launch runs the whole sweep
+    loop of ``_orthogonalize_columns_v`` -- W = I, sweeps until a sweep's
+    measure is below float32(tol^2) or ``n_sweeps`` -- rotating X IN PLACE.
+    Returns (X, W).  Nothing is read on the host: the sweeps run are added
+    into ``resident_sweep_counter(X.device)`` on the device."""
+    global V_KERNEL_LAUNCHES, V_RESIDENT_LAUNCHES
+    from .cuda_build import load_kernel_library
+
+    what = "CUDA resident sweep loop"
+    _check_cuda_rows(X, what)
+    B, n, m = X.shape
+    if not _resident_fits(B, n, m, X.element_size()):
+        raise ValueError(f"{what} takes one matrix whose X and W fit in "
+                         f"{SHARED_BYTES_PER_BLOCK} bytes of shared memory, "
+                         f"got {X.dtype} {list(X.shape)}")
+    if X.data_ptr() % 16:
+        raise ValueError(f"{what} needs a 16-byte aligned X")
+    lib, _ = load_kernel_library("jacobi_sweep")
+    fn = (lib.tct_jacobi_svd_resident_c64 if X.dtype == torch.complex64
+          else lib.tct_jacobi_svd_resident_c128)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    sched = _schedule_on(n, X.device)
+    W = torch.empty((B, n, n), dtype=X.dtype, device=X.device)
+    sweeps = torch.empty((), dtype=torch.int32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = fn(X.data_ptr(), W.data_ptr(), sched.data_ptr(), sweeps.data_ptr(),
+                 n, m, n_sweeps, _exit_threshold(tol), stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_svd_resident kernel launch failed: CUDA "
+                           f"error {err}")
+    V_KERNEL_LAUNCHES += 1
+    V_RESIDENT_LAUNCHES += 1
+    resident_sweep_counter(X.device).add_(sweeps)
+    return X, W
+
+
 def _sweep(X: torch.Tensor):
     """The dispatch rule: twin for CPU tensors, kernel for CUDA tensors."""
     if X.device.type == "cpu":
@@ -271,8 +355,7 @@ def _orthogonalize_columns(X: torch.Tensor, max_sweeps: int, tol: float,
         raise ValueError("row count must be even for the tournament")
     if n == 2:
         return _rotate_single_pair(X)[0]
-    # JAX compares the float32 measure with float32(tol^2)
-    threshold = float(np.float32(tol * tol))
+    threshold = _exit_threshold(tol)
     # one fresh contiguous buffer with the conjugation applied: the CUDA
     # kernel rotates it in place
     X = torch.empty(X.shape, dtype=X.dtype, device=X.device).copy_(X)
@@ -376,18 +459,35 @@ def _orthogonalize_columns_v(X: torch.Tensor, max_sweeps: int, tol: float,
                              sweep_v):
     """``_orthogonalize_columns`` with the V accumulator: sweep X [B, n, m]
     and W = I [B, n, n] with ``sweep_v`` until converged, one host read of
-    the batch-max measure per sweep.  Returns (X, W)."""
+    the batch-max measure per sweep.  Returns (X, W).  With the twin it is
+    the plain version of the resident kernel."""
     B, n, _ = X.shape
     if n == 2:
         return _rotate_single_pair(X)
     W = torch.zeros((B, n, n), dtype=X.dtype, device=X.device)
     W.diagonal(dim1=-2, dim2=-1).fill_(1.0)
-    threshold = float(np.float32(tol * tol))
+    threshold = _exit_threshold(tol)
     for _ in range(max_sweeps):
         X, W, measure = sweep_v(X, W)
         if float(measure.amax().to(torch.float32)) < threshold:
             break
     return X, W
+
+
+def _orthogonalize_v(X: torch.Tensor, max_sweeps: int, tol: float):
+    """The dispatch rule of ``jacobi_svd``'s sweep loop: a CPU tensor runs the
+    twin loop; any other tensor that ``_resident_fits`` runs the resident
+    kernel (one launch, no host read); any other runs the per-sweep kernel
+    (one launch and one host read per sweep).  n = 2 is the analytic pair."""
+    B, n, m = X.shape
+    if (X.device.type != "cpu" and n > 2
+            and _resident_fits(B, n, m, X.element_size())):
+        return _jacobi_svd_resident_cuda(X, max_sweeps, tol)
+    return _orthogonalize_columns_v(X, max_sweeps, tol, _sweep_v)
+
+
+_orthogonalize_v_plain = functools.partial(_orthogonalize_columns_v,
+                                           sweep_v=_jacobi_sweep_v_torch)
 
 
 def _usv_from_rotated(X: torch.Tensor, W: torch.Tensor):
@@ -400,7 +500,7 @@ def _usv_from_rotated(X: torch.Tensor, W: torch.Tensor):
     return U, S, W.conj().resolve_conj()
 
 
-def _jacobi_svd(theta, n_sweeps, tol, sweep_v):
+def _jacobi_svd(theta, n_sweeps, tol, orthogonalize):
     if n_sweeps is None:
         n_sweeps = 24 if theta.dtype == torch.complex128 else 12
     if tol is None:
@@ -415,11 +515,11 @@ def _jacobi_svd(theta, n_sweeps, tol, sweep_v):
     # pairs get the identity rotation) and rows never move, so it stays at
     # row n-1 with W row e_{n-1}; dropping both afterwards is exact.
     n = n0 + n0 % 2
-    # a fresh contiguous X = theta^T: the CUDA kernel rotates it in place
+    # a fresh contiguous X = theta^T: the CUDA kernels rotate it in place
     X = torch.zeros((theta.shape[0], n, m), dtype=theta.dtype,
                     device=theta.device)
     X[:, :n0] = theta.transpose(-1, -2)
-    X, W = _orthogonalize_columns_v(X, n_sweeps, tol, sweep_v)
+    X, W = orthogonalize(X, n_sweeps, tol)
     U, S, Vh = _usv_from_rotated(X[:, :n0], W[:, :n0, :n0])
     U, S, Vh = (U.reshape(*lead, m, n0), S.reshape(*lead, n0),
                 Vh.reshape(*lead, n0, n0))
@@ -437,16 +537,17 @@ def jacobi_svd(theta: torch.Tensor, n_sweeps: int | None = None,
     Sweeps are adaptive, with ``jacobi_sv``'s exit rule: stop once a sweep's
     max pair overlap is below tol * sigma_max^2, at most ``n_sweeps``
     (default 12 / tol 3e-8 for complex64, 24 / 1e-14 for complex128).  A CPU
-    tensor runs the torch twin, any other tensor the CUDA V-accumulating
-    kernel (or raises)."""
+    tensor runs the torch twin, any other tensor one of the CUDA
+    V-accumulating kernels by the rule of ``_orthogonalize_v`` (or
+    raises)."""
     global CUDA_SVD_CALLS
     if theta.device.type == "cuda" and theta.shape[-1] > 2:
         CUDA_SVD_CALLS += 1
-    return _jacobi_svd(theta, n_sweeps, tol, _sweep_v)
+    return _jacobi_svd(theta, n_sweeps, tol, _orthogonalize_v)
 
 
 def jacobi_svd_plain(theta: torch.Tensor, n_sweeps: int | None = None,
                      tol: float | None = None):
     """``jacobi_svd`` through the torch twin on any device: the plain
-    version the CUDA kernel is held against."""
-    return _jacobi_svd(theta, n_sweeps, tol, _jacobi_sweep_v_torch)
+    version the CUDA kernels are held against."""
+    return _jacobi_svd(theta, n_sweeps, tol, _orthogonalize_v_plain)
