@@ -9,12 +9,15 @@ tests/exact_reference.py.  Phases:
 
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: the Jacobi kernels from timecrystal_tpu_torch/csrc/ (one
-     source, one nvcc, sm_90a): the per-sweep template (kernels 1 and 2) and
-     kernel 2's resident variant, whose ptxas report must show no spills;
+     source, one nvcc, sm_90a): kernel 1's shared-memory and cluster
+     variants, kernel 2's per-sweep and resident variants; the ptxas report
+     must show no spills for kernel 1 and the resident kernel;
   3. kernel 1 (V-free sweep) checks: jacobi_sv on complex64 [4, 512, 512]
-     against LAPACK, the kernel against its torch twin (float64 one sweep
-     and full calls; float32 at every width of the chi ladder), with times
-     per call and one sweep beside its bound and torch.linalg.svd;
+     against LAPACK, both variants against the torch twin (float64 one
+     sweep; float32 at every width of the
+     chi ladder, with the device exit's sweeps against the host loop's and
+     the twin's), with times per call and one sweep at the window's three
+     call shapes and the n=512 leg's, beside the bound and torch.linalg.svd;
   4. kernel 2 (V-accumulating sweep) checks: jacobi_svd on the same input
      against LAPACK, the kernel against its twin (float64 one sweep;
      float32 full calls at the TDVP, tall, wide, odd and n=2 shapes), one
@@ -27,7 +30,9 @@ tests/exact_reference.py.  Phases:
   5. tests/golden/entangling_L10.npz through CustomFloquet on the GPU;
   6. the TEBD path at the real size: the chi-staged ensemble window of
      bench.py's CONFIG (L=40, chi cap 256, R=16, 20 merged periods), then 3
-     fixed chi=256 merged periods of one chain (kernel 1 at n=512);
+     fixed chi=256 merged periods of one chain (kernel 1 at n=512), each
+     with its kernel-1 launches and sweeps (device counter) and its host
+     syncs (torch's sync debug mode); then a profile of the window;
   7. the long-range TDVP path against the dense oracle (L=10, chi=32, 10
      periods, theta = pi and the entangling 0.92 pi, the latter also against
      a complex128 CPU run of the same TDVP), then at the interaction-range
@@ -36,13 +41,15 @@ tests/exact_reference.py.  Phases:
      time.
 
 Any failed check raises, so the exit code is not 0.  The last two lines are
-a JSON summary of both kernels and the device JSON.
+a JSON summary of the kernels (kernel 1's two variants, kernel 2's resident
+one) and the device JSON.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -162,12 +169,24 @@ def phase_device():
     return name, smi_line
 
 
-def _kernel_label(ln: str) -> str:
-    """Short name of the kernel instantiation whose mangled name is in ln."""
-    t = "f32" if "kernelIf" in ln else "f64"
-    if "jacobi_svd_resident_kernel" in ln:
-        return f"jacobi_svd_resident<{t}, {16 if 'Li16E' in ln else 8}>"
-    return ("jacobi_sweep_v" if "Lb1E" in ln else "jacobi_sweep") + f"<{t}>"
+_KERNEL_NAME = re.compile(r"(jacobi_[a-z_]+_kernel)I([fd])((?:Li\d+E)*)E")
+
+
+def _kernel_label(ln: str):
+    """Short name of the kernel instantiation whose mangled name is in ln,
+    e.g. jacobi_sv_cluster<f32, 16>; None when ln names none."""
+    m = _KERNEL_NAME.search(ln)
+    if m is None:
+        return None
+    args = ["f32" if m.group(2) == "f" else "f64"] + re.findall(r"Li(\d+)E", m.group(3))
+    return f"{m.group(1)[:-len('_kernel')]}<{', '.join(args)}>"
+
+
+# the kernel instantiations of jacobi_sweep.cu: kernel 1's shared-memory
+# and cluster variants, kernel 2's per-sweep and resident (two group sizes)
+# variants, for both types
+KERNEL1 = ("jacobi_sv_smem", "jacobi_sv_cluster")
+N_INSTANTIATIONS = 10
 
 
 def phase_build():
@@ -175,9 +194,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     _, info = load_kernel_library("jacobi_sweep")
-    # pair each kernel instantiation (jacobi_sweep_kernel<T, kWithV>,
-    # jacobi_svd_resident_kernel<T, kGroup>) with its ptxas register and
-    # spill lines
+    # pair each kernel instantiation with its ptxas register and spill lines
     ptxas, spills, label = {}, {}, None
     for ln in info.log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
@@ -193,10 +210,50 @@ def phase_build():
           flush=True)
     _check("arch=compute_90a,code=sm_90a" in info.command, "not built for sm_90a")
     if info.seconds:
-        _check(len(ptxas) == 8, f"expected 8 kernel instantiations, got {list(ptxas)}")
-        resident = [k for k in ptxas if k.startswith("jacobi_svd_resident")]
-        _check(len(resident) == 4 and all(spills.get(k) == 0 for k in resident),
-               f"the resident kernel spills: {spills}")
+        _check(len(ptxas) == N_INSTANTIATIONS,
+               f"expected {N_INSTANTIATIONS} kernel instantiations, got {list(ptxas)}")
+        checked = [k for k in ptxas
+                   if k.startswith(KERNEL1 + ("jacobi_svd_resident",))]
+        _check(len(checked) == 8 and all(spills.get(k) == 0 for k in checked),
+               f"a kernel-1 variant or the resident kernel spills: {spills}")
+
+
+def _kernel1_call(th, **kwargs):
+    """(jacobi_sv(th) on the card; the kernel-1 variant that ran; its sweeps,
+    read from the device counter).  The call itself must read nothing on
+    the host and run one variant."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    counter = J.sweep_counter(th.device)
+    s0, a0, c0, h0 = (int(counter), J.SV_SMEM_LAUNCHES, J.SV_CLUSTER_LAUNCHES,
+                      J.SV_HOST_READS)
+    out = J.jacobi_sv(th, **kwargs)
+    smem, cluster = J.SV_SMEM_LAUNCHES - a0, J.SV_CLUSTER_LAUNCHES - c0
+    _check(J.SV_HOST_READS == h0, "jacobi_sv read a sweep measure on the host")
+    _check((smem > 0) != (cluster > 0),
+           f"a jacobi_sv call ran {smem} smem and {cluster} cluster launches")
+    return out, "smem" if smem else "cluster", int(counter) - s0
+
+
+def _host_loop_sv(th, sweep, max_sweeps=None, polish=0):
+    """(jacobi_sv(th) with the sweep loop on the host, one sweep(X) call and
+    one host read per sweep; the number of sweeps it ran)."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    count = [0]
+
+    def counted(X):
+        count[0] += 1
+        return sweep(X)
+
+    out = J._jacobi_sv(th, max_sweeps, None, polish, functools.partial(
+        J._host_sweep_loop, sweep=counted))
+    return out, count[0]
+
+
+# one sweep timed at the window's three call shapes (R * bonds = 320
+# matrices at chi 32, 48, 72) and the n=512 leg's
+SWEEP_SHAPES = ((320, 64), (320, 96), (320, 144), (20, 512))
 
 
 def phase_kernels():
@@ -213,11 +270,11 @@ def phase_kernels():
         q1, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
         q2, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
         M[i] = (q1 * np.logspace(0, -7, n)) @ q2.conj().T
-    launches0, calls0 = J.KERNEL_LAUNCHES, J.CUDA_SV_CALLS
-    S, V = J.jacobi_sv(torch.as_tensor(M, device="cuda"), polish=k)
-    sweeps = J.KERNEL_LAUNCHES - launches0
+    calls0 = J.CUDA_SV_CALLS
+    (S, V), variant, sweeps = _kernel1_call(torch.as_tensor(M, device="cuda"),
+                                            polish=k)
     _check(sweeps > 0 and J.CUDA_SV_CALLS == calls0 + 1,
-           "jacobi_sv on a CUDA tensor did not launch the kernel")
+           "jacobi_sv on a CUDA tensor did not run kernel 1")
     S = S.cpu().numpy()
     Sref = np.linalg.svd(M.astype(np.complex128), compute_uv=False)
     serr = float(np.max(np.abs(S - Sref)) / Sref.max())
@@ -227,27 +284,40 @@ def phase_kernels():
     off = float(np.abs(G - np.einsum("bi,ij->bij", dg, np.eye(k))).max())
     print(f"[kernel-vs-lapack] complex64 [4, 512, 512] logspace(0,-7): "
           f"S err {serr:.2e} x sigma_max (< 5e-5), kept-V Gram off-diag "
-          f"{off:.2e} (< 5e-5), {sweeps} sweeps", flush=True)
+          f"{off:.2e} (< 5e-5), {sweeps} sweeps ({variant} variant)", flush=True)
+    _check(variant == "cluster", "[4, 512, 512] did not run the cluster variant")
     _check(serr < 5e-5, f"S error {serr} vs LAPACK")
     _check(bool(np.allclose(dg, np.round(dg), atol=1e-4)), "V Gram diagonal")
     _check(off < 5e-5, f"V Gram off-diagonal {off}")
 
-    # (b) float64: one sweep, then full calls, kernel against twin
+    # (b) float64: one sweep of each variant against the twin (rows of unit
+    # norm on average, so the absolute bound is a relative one), at n=64
+    # and at the shared-memory fit limit n=120; then the cluster variant at
+    # n=300, where 299 dependent steps spread the twin's other summation
+    # order further.
     gen = torch.Generator(device="cuda").manual_seed(1)
-    X = torch.randn(4, 64, 64, dtype=torch.complex128, device="cuda",
-                    generator=gen)
-    Xk, mk = J._jacobi_sweep_cuda(X.clone())
-    Xt, mt = J._jacobi_sweep_torch(X.clone())
-    sweep_err = float((Xk - Xt).abs().max())
-    meas_rel = float(((mk - mt).abs() / mt.abs().clamp_min(1e-300)).max())
-    Sk, _ = J.jacobi_sv(X, polish=32)
+    for B, n, bound in ((4, 64, 1e-12), (4, 120, 1e-12), (2, 300, 1e-10)):
+        X = torch.randn(B, n, n, dtype=torch.complex128, device="cuda",
+                        generator=gen) / np.sqrt(n)
+        Xt, mt = J._jacobi_sweep_torch(X.clone())
+        res = {}
+        for variant in ("smem", "cluster") if n <= 120 else ("cluster",):
+            Xk, mk = J._jacobi_sweep_cuda(X.clone(), variant)
+            res[variant] = (float((Xk - Xt).abs().max()),
+                            float(((mk - mt).abs() / mt.abs().clamp_min(1e-300)).max()))
+        print(f"[kernel-vs-twin f64] one sweep [{B}, {n}, {n}]: "
+              + ", ".join(f"{v} max |dX| {d:.2e}, measure rel {m:.2e}"
+                          for v, (d, m) in res.items())
+              + f" (< {bound:.0e}, < 1e-9)", flush=True)
+        for v, (d, m) in res.items():
+            _check(d < bound, f"f64 {v} sweep differs from the twin at n={n}: {d}")
+            _check(m < 1e-9, f"f64 {v} sweep measure differs at n={n}: {m}")
+    X = torch.randn(4, 64, 64, dtype=torch.complex128, device="cuda", generator=gen)
+    (Sk, _), _, _ = _kernel1_call(X, polish=32)
     St, _ = J.jacobi_sv_plain(X, polish=32)
     s64_err = float((Sk - St).abs().max() / St.max())
-    print(f"[kernel-vs-twin f64] one sweep [4, 64, 64]: max |dX| {sweep_err:.2e}, "
-          f"measure rel {meas_rel:.2e}; jacobi_sv S err {s64_err:.2e} x "
+    print(f"[kernel-vs-twin f64] jacobi_sv [4, 64, 64]: S err {s64_err:.2e} x "
           f"sigma_max (< 1e-10)", flush=True)
-    _check(sweep_err < 1e-12, f"f64 sweep differs from the twin: {sweep_err}")
-    _check(meas_rel < 1e-9, f"f64 sweep measure differs: {meas_rel}")
     _check(s64_err < 1e-10, f"f64 S differs from the twin: {s64_err}")
 
     # (c) float32 at every ladder width, at the single-chain call shape (20
@@ -256,8 +326,13 @@ def phase_kernels():
     # invariant; rotated rows themselves may differ by a rotation inside a
     # near-degenerate pair, a gauge freedom).  Full calls run to
     # convergence (max_sweeps=24) so S compares the arithmetic, not where a
-    # 12-sweep cap cuts two rounding paths.  Times per call are taken at the
-    # window's call shape (R * bonds = 16 * 20 = 320 matrices), default cap.
+    # 12-sweep cap cuts two rounding paths.  The device exit must give the
+    # host loop's result over the same kernel bit for bit, with the same
+    # sweeps; against the twin loop the count may differ by one, since the
+    # exit measure (tol 3e-8: |c| / sigma_max^2 ~ 3e-8) sits at float32
+    # rounding and the twin sums in another order.  The window's call shape
+    # (R * bonds = 16 * 20 = 320 matrices) is checked the same way at the
+    # default cap, and its calls are timed.
     worst = 0.0
     for n in LADDER:
         th = _tebd_like(gen, 20, n, torch.complex64)
@@ -268,46 +343,95 @@ def phase_kernels():
         G0 = X.to(torch.complex128).mH @ X.to(torch.complex128)
         Gk = Xk.to(torch.complex128).mH @ Xk.to(torch.complex128)
         gram = float((Gk - G0).abs().max() / G0.abs().max())
-        l0 = J.KERNEL_LAUNCHES
-        Sk, _ = J.jacobi_sv(th, max_sweeps=24, polish=n // 2)
-        sw = J.KERNEL_LAUNCHES - l0
-        St, _ = J.jacobi_sv_plain(th, max_sweeps=24, polish=n // 2)
+        (Sk, _), variant, sw = _kernel1_call(th, max_sweeps=24, polish=n // 2)
+        (Sh, _), sw_host = _host_loop_sv(th, J._jacobi_sweep_cuda, 24, n // 2)
+        (St, _), sw_twin = _host_loop_sv(th, J._jacobi_sweep_torch, 24, n // 2)
         err = float((Sk - St).abs().max() / St.max())
         worst = max(worst, float((Sk - St).abs().max()))
-        th = _tebd_like(gen, 320, n, torch.complex64)
-        _, t_k = _timed(lambda: J.jacobi_sv(th, polish=n // 2), reps=3)
-        _, t_t = _timed(lambda: J.jacobi_sv_plain(th, polish=n // 2))
-        print(f"[kernel-vs-twin f32] n={n}: one sweep [20, {n}, {n}] measure rel "
-              f"{meas_rel:.2e} (< 1e-6), X^H X drift {gram:.2e} (< 1e-5); "
-              f"jacobi_sv S err {err:.2e} x sigma_max (< 1e-5) in {sw} sweeps; "
-              f"per call at [320, {n}, {n}]: kernel {t_k * 1e3:.1f} ms, twin "
-              f"{t_t * 1e3:.1f} ms", flush=True)
         _check(meas_rel < 1e-6, f"f32 sweep measure at n={n}: {meas_rel}")
         _check(gram < 1e-5, f"f32 sweep not unitary at n={n}: {gram}")
         _check(err < 1e-5, f"f32 S at n={n} differs from the twin: {err}")
-        del th
+        same = bool(torch.equal(Sk, Sh))
+        _check(sw == sw_host and same,
+               f"device exit at n={n}: {sw} sweeps, host loop {sw_host}")
+        _check(abs(sw - sw_twin) <= 1, f"sweeps at n={n}: {sw}, twin {sw_twin}")
+        _check(variant == J._sv_variant(20, n, n, 8), f"n={n} ran {variant}")
+        # the window's call shape (R * bonds = 320 matrices), default cap,
+        # timed: the device exit reads 320 measures and the launches run in
+        # waves.  The same checks: S against the twin loop, the sweeps and S
+        # against the host loop over the same kernel
+        th = _tebd_like(gen, 320, n, torch.complex64)
+        ((Sk, _), v320, sw320), t_k = _timed(
+            lambda: _kernel1_call(th, polish=n // 2), reps=3)
+        (Sh, _), sw_host320 = _host_loop_sv(th, J._jacobi_sweep_cuda, None, n // 2)
+        ((St, _), sw_twin320), t_t = _timed(
+            lambda: _host_loop_sv(th, J._jacobi_sweep_torch, None, n // 2))
+        err320 = float((Sk - St).abs().max() / St.max())
+        worst = max(worst, float((Sk - St).abs().max()))
+        print(f"[kernel-vs-twin f32] n={n} ({variant}): one sweep [20, {n}, {n}] "
+              f"measure rel {meas_rel:.2e} (< 1e-6), X^H X drift {gram:.2e} (< 1e-5); "
+              f"jacobi_sv S err {err:.2e} x sigma_max (< 1e-5); sweeps: device exit "
+              f"{sw}, host loop over the kernel {sw_host} (S identical: "
+              f"{same}), twin loop {sw_twin}; at [320, {n}, {n}] "
+              f"({v320}, default cap): S err {err320:.2e} x sigma_max (< 1e-5), "
+              f"sweeps: device exit {sw320}, host loop over the kernel "
+              f"{sw_host320}, twin loop {sw_twin320}; per call kernel "
+              f"{t_k * 1e3:.1f} ms, twin {t_t * 1e3:.1f} ms", flush=True)
+        _check(err320 < 1e-5, f"f32 S at [320, {n}, {n}] differs from the twin: "
+               f"{err320}")
+        _check(sw320 == sw_host320 and torch.equal(Sk, Sh),
+               f"device exit at [320, {n}, {n}]: {sw320} sweeps, host loop "
+               f"{sw_host320}")
+        _check(abs(sw320 - sw_twin320) <= 1,
+               f"sweeps at [320, {n}, {n}]: {sw320}, twin {sw_twin320}")
+        _check(v320 == J._sv_variant(320, n, n, 8), f"[320, {n}, {n}] ran {v320}")
+        del th, Sk, Sh, St
 
-    # (d) one sweep, CUDA events: the window's first stage [320, 64, 64]
-    # (the "ms" of the summary) and the single-chain n=512 leg [20, 512, 512],
-    # beside the sweep's bound and one torch.linalg.svd of the same batch
-    ms = {}
-    for B, n in ((320, 64), (20, 512)):
+    # (d) one sweep, CUDA events, twice, at the window's call shapes and the
+    # n=512 leg's, beside the sweep's bound and one torch.linalg.svd of the
+    # same batch
+    times = {}
+    for B, n in SWEEP_SHAPES:
         th = _tebd_like(gen, B, n, torch.complex64)
         X = th.conj().resolve_conj().contiguous()
-        for name, fn in (("kernel", J._jacobi_sweep_cuda),
-                         ("twin", J._jacobi_sweep_torch)):
-            ms[(name, B, n)] = _event_ms(fn, [(X.clone(),) for _ in range(6)])
-        ms[("library", B, n)] = _library_ms(th)
+        variant = J._sv_variant(B, n, n, X.element_size())
+        ms = [_event_ms(lambda x: J._jacobi_sweep_cuda(x, variant),
+                        [(X.clone(),) for _ in range(6)]) for _ in range(2)]
+        twin = _event_ms(J._jacobi_sweep_torch, [(X.clone(),) for _ in range(3)])
+        lib = _library_ms(th)
         bound, by, f64 = sweep_bound(B, n, n, with_v=False)
-        ms[("bound", B, n)] = (bound, by)
-        print(f"[sweep time] one sweep, complex64 [{B}, {n}, {n}]: kernel "
-              f"{ms[('kernel', B, n)]:.3f} ms, twin {ms[('twin', B, n)]:.3f} ms, "
-              f"bound {bound:.4f} ms ({by}; FP64 FLOPs {f64:.4f} ms), "
-              f"torch.linalg.svd {ms[('library', B, n)]:.3f} ms", flush=True)
-    return dict(max_abs_err=worst, ms=ms[("kernel", 320, 64)],
-                plain_ms=ms[("twin", 320, 64)], bound_ms=ms[("bound", 320, 64)][0],
-                bound_by=ms[("bound", 320, 64)][1],
-                library_ms=ms[("library", 320, 64)])
+        if variant == "smem":
+            per_sm = J.smem_occupancy(n, n, X.dtype, X.device)
+            layout = (f"{per_sm} CTAs an SM, {-(-B // (per_sm * SMS))} wave(s) of "
+                      f"{per_sm * SMS}")
+        else:
+            size, active = J.cluster_plan(B, n, n, X.dtype, X.device)
+            layout = (f"clusters of {size} CTAs, {active} co-resident, "
+                      f"{-(-B // active)} wave(s)")
+        times[(B, n)] = dict(ms=float(np.mean(ms)), plain_ms=twin,
+                             bound_ms=bound, bound_by=by, library_ms=lib,
+                             variant=variant)
+        print(f"[sweep time] one sweep, complex64 [{B}, {n}, {n}], {variant} "
+              f"variant ({layout}): {' / '.join(f'{t:.4f}' for t in ms)} ms; "
+              f"twin {twin:.3f} ms, bound {bound:.4f} ms ({by}; FP64 "
+              f"FLOPs {f64:.4f} ms), torch.linalg.svd {lib:.3f} ms", flush=True)
+        del th, X
+    # the float <-> double conversions' share: complex128 rows convert
+    # nothing (but move twice the bytes); the same sweep in both types
+    per_dtype = {}
+    for dtype in (torch.complex64, torch.complex128):
+        X = torch.randn(320, 64, 64, dtype=dtype, device="cuda", generator=gen)
+        per_dtype[dtype] = _event_ms(J._jacobi_sweep_cuda,
+                                     [(X.clone(),) for _ in range(6)])
+    print(f"[sweep time] smem variant, one sweep at [320, 64, 64]: complex64 "
+          f"{per_dtype[torch.complex64]:.4f} ms, complex128 "
+          f"{per_dtype[torch.complex128]:.4f} ms", flush=True)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {variant: dict(
+        max_abs_err=worst, **{k: times[shape][k] for k in keys},
+        ms_by_shape={f"{B}x{n}x{n}": t["ms"] for (B, n), t in times.items()
+                     if t["variant"] == variant})
+        for variant, shape in (("smem", (320, 64)), ("cluster", (20, 512)))}
 
 
 def _usv_rel(U, S, Vh, M):
@@ -608,17 +732,52 @@ def phase_golden():
                          device="cuda")
     psi0 = create_initial_state(L, "neel", chi=chi, dtype=torch.complex64,
                                 device="cuda")
-    l0 = J.KERNEL_LAUNCHES
+    counter = J.sweep_counter("cuda:0")
+    s0, c0 = int(counter), J.CUDA_SV_CALLS
     tp = TruncParams.reference_hot_path()._replace(svd_method="jacobi")
     tr, _, info = CustomFloquet(m, tp).evolve_floquet_traces(psi0, n)
     d_sz = float(np.max(np.abs(tr["sz_sites"] - sz_ref)))
     d_le = float(np.max(np.abs(tr["loschmidt_echo"] - le_ref)))
+    sweeps = int(counter) - s0
     print(f"[golden] entangling_L10 (L={L}, chi={chi}, {n} periods, complex64, "
           f"kernel): max |d sz| {d_sz:.2e}, max |d LE| {d_le:.2e} (< 1e-4); "
-          f"{J.KERNEL_LAUNCHES - l0} sweeps, {info['periods_per_second']:.1f} "
-          f"periods/s", flush=True)
-    _check(J.KERNEL_LAUNCHES > l0, "golden run did not launch the kernel")
+          f"{J.CUDA_SV_CALLS - c0} SVD calls, {sweeps} sweeps, "
+          f"{info['periods_per_second']:.1f} periods/s", flush=True)
+    _check(sweeps > 0, "golden run did not run kernel 1")
     _check(d_sz < 1e-4 and d_le < 1e-4, "golden trace mismatch")
+
+
+def _reset_kernel1_counts():
+    """Set kernel 1's counts to 0: the launches of each variant, the CUDA
+    jacobi_sv calls, its host reads and the device counter of sweeps."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    J.KERNEL_LAUNCHES = J.SV_SMEM_LAUNCHES = J.SV_CLUSTER_LAUNCHES = 0
+    J.CUDA_SV_CALLS = J.SV_HOST_READS = 0
+    J.sweep_counter("cuda:0").zero_()
+
+
+def _kernel1_counts():
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    return dict(launches=J.KERNEL_LAUNCHES, smem=J.SV_SMEM_LAUNCHES,
+                cluster=J.SV_CLUSTER_LAUNCHES, calls=J.CUDA_SV_CALLS,
+                host_reads=J.SV_HOST_READS,
+                sweeps=int(J.sweep_counter("cuda:0")))
+
+
+def _with_sync_count(fn):
+    """(fn(), host syncs during it by torch's sync debug mode)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
 def phase_real_size():
@@ -642,13 +801,12 @@ def phase_real_size():
                      tp=TruncParams(chi_max=0, svd_min=c["svd_min"]),
                      dtype="float32", frame="merged")
     torch.cuda.reset_peak_memory_stats()
-    J.KERNEL_LAUNCHES = 0           # the main path's count starts here
-    J.CUDA_SV_CALLS = 0
-    traces, info = evolve_batch_auto(
+    _reset_kernel1_counts()              # the window's counts start here
+    (traces, info), win_syncs = _with_sync_count(lambda: evolve_batch_auto(
         h, np.full(R, c["tau"]), _basis_indices(L, "neel"), spec,
         chi_start=c["chi_start"], chunk_periods=c["chunk"],
-        growth=c["growth"], device="cuda")
-    win_launches, win_calls = J.KERNEL_LAUNCHES, J.CUDA_SV_CALLS
+        growth=c["growth"], device="cuda"))
+    win = _kernel1_counts()
     for k, v in traces.items():
         _check(bool(np.all(np.isfinite(v))), f"non-finite trace {k}")
     _check(traces["sz_sites"].shape == (R, n_periods + 1, L), "sz shape")
@@ -656,19 +814,23 @@ def phase_real_size():
     _check(float(le.min()) >= 0.0 and float(le.max()) <= 1.0 + 1e-5,
            f"LE outside [0, 1]: {le.min()} {le.max()}")
     _check(int(traces["max_chi"].max()) <= c["chi"], "max_chi above the cap")
-    _check(win_launches > 0, "the window launched no kernel")
+    _check(win["smem"] > 0 and win["sweeps"] > 0,
+           "the window ran no shared-memory kernel-1 sweep")
+    _check(win["smem"] + win["cluster"] == win["launches"], "kernel-1 launch count")
+    _check(win["host_reads"] == 0, f"{win['host_reads']} jacobi_sv host reads")
     schedule = [c["chi_start"]] + [e["to"] for e in info["chi_escalations"]]
     n_chunks = (-(-n_periods // c["chunk"])
                 + sum(1 for e in info["chi_escalations"] if not e.get("ahead")))
     print(f"[window] L={L} R={R} {n_periods} merged periods: "
           f"{info['chain_periods_per_second']:.2f} chain-periods/s "
           f"({info['wall_time']:.1f} s); chi schedule {schedule} "
-          f"(escalations {info['chi_escalations']}); {win_calls} SVD calls, "
-          f"{win_launches} sweeps ({win_launches / max(win_calls, 1):.2f} per "
-          f"call); host syncs: {win_launches} sweep-exit reads + {n_chunks} "
-          f"chunk fetches; max_chi {int(traces['max_chi'].max())}; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+          f"(escalations {info['chi_escalations']}); {win['calls']} SVD calls, "
+          f"{win['sweeps']} sweeps ({win['sweeps'] / max(win['calls'], 1):.2f} per "
+          f"call, device counter) in {win['launches']} launches ({win['smem']} "
+          f"smem, {win['cluster']} cluster); host syncs {win_syncs} "
+          f"({win['host_reads']} sweep-exit reads, {n_chunks} chunks); max_chi "
+          f"{int(traces['max_chi'].max())}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     # n = 512: three fixed chi=256 merged periods of one chain
     gates = make_floquet_gates(1.0, torch.as_tensor(h[0], device="cuda"),
@@ -676,18 +838,88 @@ def phase_real_size():
                                dtype=torch.complex64)
     psi0 = create_initial_state(L, "neel", chi=c["chi"], dtype=torch.complex64,
                                 device="cuda")
-    l0, c0 = J.KERNEL_LAUNCHES, J.CUDA_SV_CALLS
-    (psi, tr), dt = _timed(lambda: evolve_floquet_scan(
-        psi0, gates, 3, spec.tp._replace(svd_method="jacobi"), frame="merged"))
-    sw, calls = J.KERNEL_LAUNCHES - l0, J.CUDA_SV_CALLS - c0
+    _reset_kernel1_counts()              # the n512 leg's counts start here
+    ((psi, tr), leg_syncs), dt = _timed(lambda: _with_sync_count(
+        lambda: evolve_floquet_scan(psi0, gates, 3,
+                                    spec.tp._replace(svd_method="jacobi"),
+                                    frame="merged")))
+    leg = _kernel1_counts()
     sz = tr["sz_sites"].cpu().numpy()
     _check(bool(np.all(np.isfinite(sz))) and sz.shape == (3, L), "n512 traces")
-    _check(psi.chi == c["chi"] and sw > 0, "n512 leg did not launch the kernel")
+    _check(psi.chi == c["chi"] and leg["cluster"] > 0 and leg["sweeps"] > 0,
+           "the n512 leg ran no cluster kernel-1 sweep")
+    _check(leg["host_reads"] == 0, f"{leg['host_reads']} jacobi_sv host reads")
     print(f"[n512] one chain, chi=256, 3 merged periods: {3 / dt:.3f} "
-          f"periods/s ({dt:.2f} s incl. frame entry/exit); {calls} SVD calls "
-          f"at n=512, {sw} sweeps ({sw / max(calls, 1):.2f} per call)",
-          flush=True)
-    return J.KERNEL_LAUNCHES
+          f"periods/s ({dt:.2f} s incl. frame entry/exit); {leg['calls']} SVD "
+          f"calls at n=512, {leg['sweeps']} sweeps ({leg['sweeps'] / max(leg['calls'], 1):.2f} "
+          f"per call, device counter) in {leg['launches']} launches "
+          f"({leg['smem']} smem, {leg['cluster']} cluster); host syncs "
+          f"{leg_syncs} ({leg['host_reads']} sweep-exit reads)", flush=True)
+    return {v: win[v] + leg[v] for v in ("smem", "cluster")}, info["wall_time"]
+
+
+def phase_window_profile(window_s: float):
+    """Where the window's time goes: torch.profiler over a second run of the
+    window (the kernels built and the chi ladder's schedules cached),
+    device time by class, the device's idle share and the runtime's
+    synchronize calls.  The profiler slows the host, so the idle share is
+    also given against ``window_s``, the unprofiled window's seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.models.kicked_ising import draw_disorder_reference
+    from timecrystal_tpu_torch.parallel.sweep import (SweepSpec, _basis_indices,
+                                                      evolve_batch_auto)
+
+    c = CONFIG
+    L, R = c["L"], c["R"]
+    h = np.stack([draw_disorder_reference(L, c["h"], c["seed"] + r)
+                  for r in range(R)])
+    spec = SweepSpec(L=L, chi=c["chi"], n_periods=c["n_periods"],
+                     theta=c["theta_frac"] * float(np.pi),
+                     tp=TruncParams(chi_max=0, svd_min=c["svd_min"]),
+                     dtype="float32", frame="merged")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, info = evolve_batch_auto(
+            h, np.full(R, c["tau"]), _basis_indices(L, "neel"), spec,
+            chi_start=c["chi_start"], chunk_periods=c["chunk"],
+            growth=c["growth"], device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes = {"kernel 1 smem": 0.0, "kernel 1 cluster": 0.0,
+               "matmul / einsum": 0.0, "other": 0.0}
+    launches = {"kernel 1 smem": 0, "kernel 1 cluster": 0}
+    n_sync = 0
+    for evt in prof.key_averages():
+        if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            n_sync += evt.count
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = float(getattr(evt, "self_device_time_total", 0.0)) / 1e3   # ms
+        name = evt.key.lower()
+        if "jacobi_sv_smem" in name:
+            classes["kernel 1 smem"] += t
+            launches["kernel 1 smem"] += evt.count
+        elif "jacobi_sv_cluster" in name:
+            classes["kernel 1 cluster"] += t
+            launches["kernel 1 cluster"] += evt.count
+        elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass", "bmm", "dot")):
+            classes["matmul / einsum"] += t
+        else:
+            classes["other"] += t
+    busy = sum(classes.values())
+    parts = ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.0%})"
+                      for k, v in classes.items())
+    print(f"[window-profile] {R * c['n_periods']} chain-periods: wall "
+          f"{wall * 1e3:.1f} ms (profiled), device busy {busy:.1f} ms, idle "
+          f"share {1 - busy / (wall * 1e3):.3f} (against the unprofiled "
+          f"{window_s * 1e3:.1f} ms: {1 - busy / (window_s * 1e3):.3f}); "
+          f"{parts}; kernel-1 launches "
+          f"{launches}; {n_sync} CUDA runtime synchronize calls", flush=True)
+    _check(launches["kernel 1 smem"] > 0, "the profiled window ran no kernel 1")
 
 
 def _oracle_traces(oracle, L, couplings, h_fields, tau, theta, n):
@@ -940,7 +1172,8 @@ def main() -> int:
     resident = phase_v_resident()
     k2.update(resident, max_abs_err=max(k2["max_abs_err"], resident["max_abs_err"]))
     phase_golden()
-    k1["launches"] = phase_real_size()
+    launches, window_s = phase_real_size()
+    phase_window_profile(window_s)
     phase_tdvp_oracle()
     k2["launches"], period_s = phase_range()
     phase_range_profile(period_s)
@@ -949,13 +1182,18 @@ def main() -> int:
     source = "timecrystal_tpu_torch/csrc/jacobi_sweep.cu"
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # kernel 2 is reported as the main path runs it, the resident variant:
-    # ms per sweep and per call at [1, 96, 96], launches one per SVD call;
-    # per_sweep_ms is the per-sweep variant's sweep on the same shape
-    print(json.dumps({"kernels": [
-        {"name": "jacobi_sweep", "route": "cuda", "source": source,
+    # kernel 1 is reported as its two variants, each with its launches on
+    # the main path (the window and the n512 leg): the shared-memory one with
+    # ms per sweep at [320, 64, 64] and at each window shape, the cluster one
+    # at [20, 512, 512].  Kernel 2 as the main path runs it, the resident
+    # variant: ms per sweep and per call at [1, 96, 96], launches one per SVD
+    # call; per_sweep_ms is the per-sweep variant's sweep on the same shape
+    kernel1 = [
+        {"name": f"jacobi_sv_{v}", "route": "cuda", "source": source,
          "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:159",
-         **{k: k1[k] for k in keys}},
+         **{k: dict(k1[v], launches=launches[v])[k] for k in keys + ("ms_by_shape",)}}
+        for v in ("smem", "cluster")]
+    print(json.dumps({"kernels": kernel1 + [
         {"name": "jacobi_svd_resident", "route": "cuda", "source": source,
          "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:75",
          **{k: k2[k] for k in keys + ("call_ms", "sweeps_per_call",

@@ -55,6 +55,12 @@ def _rank_deficient(rng, n, r=3):
     return (A @ B) / n
 
 
+def _rank1(rng, n):
+    u = rng.normal(size=(n, 1)) + 1j * rng.normal(size=(n, 1))
+    v = rng.normal(size=(1, n)) + 1j * rng.normal(size=(1, n))
+    return (u @ v) / n
+
+
 def _both(M, k):
     Sj, Vj = jax_jacobi_sv(C(np.ascontiguousarray(M.real),
                              np.ascontiguousarray(M.imag)),
@@ -86,6 +92,10 @@ CASES = {
     "decaying_floor_polish": lambda rng: _decaying(rng, 16),
     "rank_deficient": lambda rng: _rank_deficient(rng, 16),
     "batched": lambda rng: np.stack([_random(rng, 8) for _ in range(3)]),
+    # a rank-1 matrix converges sweeps before the random ones beside it: the
+    # batch max decides when the whole call stops
+    "batch_max_decides": lambda rng: np.stack([_rank1(rng, 8), _random(rng, 8),
+                                               _random(rng, 8)]),
     "n2": lambda rng: _random(rng, 2),
     "n4": lambda rng: _random(rng, 4),
 }

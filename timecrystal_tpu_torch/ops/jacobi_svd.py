@@ -3,24 +3,34 @@ the full (U, S, Vh).
 
 Port of ``timecrystal_tpu/ops/pallas/jacobi_svd.py``'s ``jacobi_sv`` and
 ``jacobi_svd``.  Both Pallas sweep kernels are hand-written CUDA kernels in
-``csrc/jacobi_sweep.cu`` (one template): ``_jacobi_sweep_kernel`` (V-free)
-and ``_jacobi_sweep_v_kernel`` (also rotates the accumulator V).  Beside
-each lives its plain torch twin (``_jacobi_sweep_torch``,
+``csrc/jacobi_sweep.cu``: ``_jacobi_sweep_kernel`` (V-free, kernel 1) and
+``_jacobi_sweep_v_kernel`` (also rotates the accumulator V, kernel 2).
+Beside them lives their plain torch twin (``_jacobi_sweep_torch``,
 ``_jacobi_sweep_v_torch``), the same sweep vectorized over the pairs with
 the Pallas body's slice-and-concatenate tournament cycle.
 
-Dispatch rule (``_sweep``, ``_sweep_v``): a CPU tensor runs the twin, any
-other tensor goes to the CUDA wrapper, which launches the kernel or raises;
-there is no fallback between the two.  ``KERNEL_LAUNCHES`` and
-``V_KERNEL_LAUNCHES`` count kernel launches and nothing else.
+Dispatch rule: a CPU tensor runs the twin, any other tensor goes to a CUDA
+wrapper, which launches a kernel or raises; there is no fallback between
+them, nor between two kernels.  The launch counters count kernel launches
+and nothing else.
 
-``jacobi_svd`` has two CUDA kernels, picked by shape (``_orthogonalize_v``):
-one matrix whose X and W fit in one SM's shared memory (``_resident_fits``:
-complex64 up to n = 120, complex128 up to n = 84 -- TDVP's splits) runs the
-resident kernel, which keeps the matrix in shared memory and runs the whole
-sweep loop and its exit test in one launch; every other CUDA call runs the
-per-sweep kernel, one launch and one host read of the exit measure per
-sweep.  On a CPU tensor both are the twin loop.
+``jacobi_sv`` (``_sweep_loop``) has two kernel-1 variants, picked by shape
+(``_sv_variant``): a matrix that fits one SM's shared memory
+(``_sv_smem_fits``: complex64 up to n = 168, complex128 up to n = 120 -- the
+TEBD window) runs the shared-memory variant, any other the cluster variant
+(a cluster of CTAs per matrix -- the n = 512 leg).  Both take the exit rule
+on the device: the host enqueues ``max_sweeps`` launches and reads nothing;
+each launch first reads the previous one's batch-max measure and returns
+at once after the exit (``_device_sweep_loop``).  The sweeps run are added
+into ``sweep_counter(device)``.
+
+``jacobi_svd`` has two kernel-2 variants (``_orthogonalize_v``): one matrix
+whose X and W fit in one SM's shared memory (``_resident_fits``: complex64
+up to n = 120, complex128 up to n = 84 -- TDVP's splits) runs the resident
+kernel, which runs the whole sweep loop and its exit test in one launch;
+every other CUDA call runs the per-sweep kernel, one launch and one host
+read of the exit measure per sweep.  On a CPU tensor both are the twin
+loop.
 
 Everything around the sweep -- the sweep-until-converged loop of the
 per-sweep kernels, the sigma sort and 64*eps floor, column normalization
@@ -44,10 +54,17 @@ import functools
 import numpy as np
 import torch
 
-# sweep-kernel launches (one per sweep on a CUDA tensor); the twin never counts
+# kernel-1 launches on a CUDA tensor, of either variant (max_sweeps per
+# jacobi_sv call: the launches after the exit return at once), and of each
+# variant; the twin never counts
 KERNEL_LAUNCHES = 0
+SV_SMEM_LAUNCHES = 0
+SV_CLUSTER_LAUNCHES = 0
 # jacobi_sv calls that ran the sweep loop on a CUDA tensor
 CUDA_SV_CALLS = 0
+# reads of a sweep measure that lies off the CPU by jacobi_sv's host loop
+# (each one a device sync); the CUDA path makes none
+SV_HOST_READS = 0
 # V-accumulating kernel launches on a CUDA tensor, of either kernel: one per
 # sweep of the per-sweep kernel, one per jacobi_svd call of the resident
 # kernel; the twin never counts
@@ -59,9 +76,13 @@ CUDA_SVD_CALLS = 0
 
 # shared memory one block can use on Hopper (sm_90)
 SHARED_BYTES_PER_BLOCK = 232448
+# rows the shared-memory kernel-1 variant takes: 8 lanes per pair, 672 threads
+SMEM_MAX_ROWS = 168
 
 _SCHEDULES: dict = {}
+_SWEEPS: dict = {}
 _RESIDENT_SWEEPS: dict = {}
+_CLUSTER_PLANS: dict = {}
 
 
 def _pair_rotation(a, b, c):
@@ -183,29 +204,141 @@ def _check_cuda_rows(X: torch.Tensor, what: str = "CUDA sweep") -> None:
         raise ValueError(f"{what} needs even n >= 4, got n={n}")
 
 
-def _jacobi_sweep_cuda(X: torch.Tensor):
-    """Launch the CUDA sweep kernel on X [B, n, m] (complex64/128, CUDA,
-    contiguous), rotating X IN PLACE.  Returns (X, measure [B] float64).
-    One launch is one sweep, enqueued on the current stream."""
-    global KERNEL_LAUNCHES
+def _sv_smem_fits(n: int, m: int, itemsize: int) -> bool:
+    """Kernel 1's shared-memory fit rule, for X [B, n, m] of complex items of
+    ``itemsize`` bytes: one matrix [n, m], its norms [n] and 32 doubles of
+    reduction scratch in one block's shared memory (complex64 up to
+    n = 168, complex128 up to n = 120 when square), and 8 lanes for each of
+    the n/2 pairs within the kernel's 672 threads (n up to 168)."""
+    return (n <= SMEM_MAX_ROWS
+            and n * m * itemsize + (n + 32) * 8 <= SHARED_BYTES_PER_BLOCK)
+
+
+def _sv_variant(B: int, n: int, m: int, itemsize: int) -> str:
+    """The kernel-1 variant that takes X [B, n, m]: 'smem' if a matrix fits
+    one SM's shared memory, else 'cluster'."""
+    return "smem" if _sv_smem_fits(n, m, itemsize) else "cluster"
+
+
+def _device_counter(store: dict, device) -> torch.Tensor:
+    key = str(torch.device(device))
+    if key not in store:
+        store[key] = torch.zeros((), dtype=torch.int64, device=device)
+    return store[key]
+
+
+def sweep_counter(device) -> torch.Tensor:
+    """The int64 counter on ``device`` (a CUDA device with its index) to
+    which every kernel-1 launch that runs its sweep adds one on the device,
+    so that counting reads nothing on the host.  Reset it with
+    ``zero_()``."""
+    return _device_counter(_SWEEPS, device)
+
+
+def cluster_plan(B: int, n: int, m: int, dtype, device) -> tuple:
+    """(cluster size, co-resident clusters) of the cluster variant for
+    X [B, n, m]: the largest size up to 8 CTAs per matrix for which the
+    card keeps all B clusters resident at once (else 1), and the card's
+    count of co-resident clusters of that size
+    (cudaOccupancyMaxActiveClusters).  Cached per shape and device."""
+    from .cuda_build import load_kernel_library
+
+    key = (B, n, m, dtype, str(torch.device(device)))
+    if key not in _CLUSTER_PLANS:
+        lib, _ = load_kernel_library("jacobi_sweep")
+        fn = (lib.tct_jacobi_sweep_cluster_plan_c64 if dtype == torch.complex64
+              else lib.tct_jacobi_sweep_cluster_plan_c128)
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        size, active = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = fn(B, n, m, ctypes.byref(size), ctypes.byref(active))
+        if err != 0:
+            raise RuntimeError(f"jacobi_sweep cluster plan failed: CUDA error {err}")
+        _CLUSTER_PLANS[key] = (size.value, active.value)
+    return _CLUSTER_PLANS[key]
+
+
+def smem_occupancy(n: int, m: int, dtype, device) -> int:
+    """CTAs of the shared-memory variant one SM holds at once for an [n, m]
+    matrix (cudaOccupancyMaxActiveBlocksPerMultiprocessor): a batch above
+    the card's SM count times this runs in more than one wave."""
+    from .cuda_build import load_kernel_library
+
+    lib, _ = load_kernel_library("jacobi_sweep")
+    fn = (lib.tct_jacobi_sweep_smem_occupancy_c64 if dtype == torch.complex64
+          else lib.tct_jacobi_sweep_smem_occupancy_c128)
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(n, m, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"jacobi_sweep occupancy query failed: CUDA error {err}")
+    return blocks.value
+
+
+def _launch_sweep_cuda(X: torch.Tensor, prev, measure: torch.Tensor,
+                       done: torch.Tensor, threshold: float,
+                       variant: str) -> None:
+    """Enqueue one kernel-1 launch of ``variant`` ('smem' or 'cluster') on
+    X [B, n, m] (complex64/128, CUDA, contiguous, 16-byte aligned), rotating
+    X IN PLACE by one sweep unless the exit test skips it.  ``prev`` [B]
+    float64 holds the measures of the loop's previous launch (None for its
+    first: no exit test); ``measure`` [B] float64 receives this sweep's;
+    ``done`` is the loop's int32 exit flag (0 before its first launch);
+    ``threshold`` the float32 exit threshold."""
+    global KERNEL_LAUNCHES, SV_SMEM_LAUNCHES, SV_CLUSTER_LAUNCHES
     from .cuda_build import load_kernel_library
 
     _check_cuda_rows(X)
     B, n, m = X.shape
+    if X.data_ptr() % 16:
+        raise ValueError("CUDA sweep needs a 16-byte aligned X")
     lib, _ = load_kernel_library("jacobi_sweep")
-    fn = (lib.tct_jacobi_sweep_c64 if X.dtype == torch.complex64
-          else lib.tct_jacobi_sweep_c128)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    c64 = X.dtype == torch.complex64
+    if variant == "smem":
+        if not _sv_smem_fits(n, m, X.element_size()):
+            raise ValueError(f"the shared-memory sweep does not take {X.dtype} "
+                             f"{list(X.shape)}")
+        fn = lib.tct_jacobi_sweep_c64 if c64 else lib.tct_jacobi_sweep_c128
+        extra = []
+    elif variant == "cluster":
+        fn = (lib.tct_jacobi_sweep_cluster_c64 if c64
+              else lib.tct_jacobi_sweep_cluster_c128)
+        extra = [cluster_plan(B, n, m, X.dtype, X.device)[0]]
+    else:
+        raise ValueError(f"unknown kernel-1 variant {variant!r}")
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                   + [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     sched = _schedule_on(n, X.device)
-    measure = torch.empty(B, dtype=torch.float64, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = fn(X.data_ptr(), sched.data_ptr(), measure.data_ptr(), B, n, m,
-                 stream)
+        err = fn(X.data_ptr(), sched.data_ptr(),
+                 None if prev is None else prev.data_ptr(), measure.data_ptr(),
+                 done.data_ptr(), sweep_counter(X.device).data_ptr(), B, n, m,
+                 threshold, *extra, stream)
     if err != 0:
-        raise RuntimeError(f"jacobi_sweep kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"jacobi_sweep ({variant}) kernel launch failed: "
+                           f"CUDA error {err}")
     KERNEL_LAUNCHES += 1
+    if variant == "smem":
+        SV_SMEM_LAUNCHES += 1
+    else:
+        SV_CLUSTER_LAUNCHES += 1
+
+
+def _jacobi_sweep_cuda(X: torch.Tensor, variant: str | None = None):
+    """One kernel-1 sweep on X [B, n, m] (complex64/128, CUDA, contiguous),
+    rotating X IN PLACE, on ``variant`` (default: the one the shape picks).
+    Returns (X, measure [B] float64), enqueued on the current stream."""
+    _check_cuda_rows(X)
+    B, n, m = X.shape
+    measure = torch.empty(B, dtype=torch.float64, device=X.device)
+    done = torch.zeros((), dtype=torch.int32, device=X.device)
+    _launch_sweep_cuda(X, None, measure, done, 0.0,
+                       variant or _sv_variant(B, n, m, X.element_size()))
     return X, measure
 
 
@@ -254,10 +387,7 @@ def resident_sweep_counter(device) -> torch.Tensor:
     which the resident kernel's wrapper adds each call's sweep count on the
     device, so that counting reads nothing on the host.  Reset it with
     ``zero_()``."""
-    key = str(torch.device(device))
-    if key not in _RESIDENT_SWEEPS:
-        _RESIDENT_SWEEPS[key] = torch.zeros((), dtype=torch.int64, device=device)
-    return _RESIDENT_SWEEPS[key]
+    return _device_counter(_RESIDENT_SWEEPS, device)
 
 
 def _exit_threshold(tol: float) -> float:
@@ -307,15 +437,9 @@ def _jacobi_svd_resident_cuda(X: torch.Tensor, n_sweeps: int, tol: float):
     return X, W
 
 
-def _sweep(X: torch.Tensor):
-    """The dispatch rule: twin for CPU tensors, kernel for CUDA tensors."""
-    if X.device.type == "cpu":
-        return _jacobi_sweep_torch(X)
-    return _jacobi_sweep_cuda(X)
-
-
 def _sweep_v(X: torch.Tensor, W: torch.Tensor):
-    """The dispatch rule of the V-accumulating sweep, as ``_sweep``."""
+    """The dispatch rule of the V-accumulating sweep: twin for CPU tensors,
+    the per-sweep kernel for any other."""
     if X.device.type == "cpu":
         return _jacobi_sweep_v_torch(X, W)
     return _jacobi_sweep_v_cuda(X, W)
@@ -339,31 +463,71 @@ def _rotate_single_pair(X: torch.Tensor):
     return Xr, W
 
 
-def _orthogonalize_columns(X: torch.Tensor, max_sweeps: int, tol: float,
-                           sweep) -> torch.Tensor:
-    """Sweep X [B, n, m] (rows = the columns of A) until every pair overlap
-    of a whole sweep is below tol * sigma_max^2, or max_sweeps, running
-    ``sweep`` (the dispatcher or the twin) once per sweep.  All
-    matrices of the call run the same number of sweeps (the exit reads the
-    batch max, as the JAX while_loop does).  Returns rows = left singular
-    vectors of A scaled by its singular values (unsorted).
+def _host_sweep_loop(X: torch.Tensor, max_sweeps: int, threshold: float,
+                     sweep) -> torch.Tensor:
+    """The sweep loop on the host: ``sweep(X) -> (X, measure)`` once per
+    sweep, stopping after the first sweep whose batch-max measure, rounded
+    to float32, is below ``threshold`` (the JAX while_loop's rule), or at
+    ``max_sweeps``.  Each test reads the measure: a device sync when it lies
+    off the CPU (counted in ``SV_HOST_READS``)."""
+    global SV_HOST_READS
+    for _ in range(max_sweeps):
+        X, measure = sweep(X)
+        if measure.device.type != "cpu":
+            SV_HOST_READS += 1
+        if float(measure.amax().to(torch.float32)) < threshold:
+            break
+    return X
 
-    The exit test reads the measure on the host: one device sync per sweep.
-    """
+
+def _device_sweep_loop(X: torch.Tensor, max_sweeps: int, threshold: float,
+                       launch) -> torch.Tensor:
+    """The same loop with its exit on the device: ``max_sweeps`` calls of
+    ``launch(X, prev, measure, done, threshold)``, each handed the previous
+    call's measures (None for the first), a fresh [B] float64 row to write
+    its own into, and the loop's int32 ``done`` flag.  A launch that finds
+    ``done`` set, or the previous batch max below ``threshold``, sets
+    ``done`` and leaves X alone; so X and the sweeps run are the host
+    loop's, and nothing is read on the host."""
+    measures = torch.empty((2, X.shape[0]), dtype=torch.float64, device=X.device)
+    done = torch.zeros((), dtype=torch.int32, device=X.device)
+    for s in range(max_sweeps):
+        launch(X, measures[(s - 1) % 2] if s else None, measures[s % 2], done,
+               threshold)
+    return X
+
+
+def _sweep_loop(X: torch.Tensor, max_sweeps: int, threshold: float):
+    """The dispatch rule of ``jacobi_sv``'s sweep loop: a CPU tensor runs the
+    twin on the host; any other tensor runs the kernel-1 variant its shape
+    picks, with the exit on the device."""
+    if X.device.type == "cpu":
+        return _host_sweep_loop(X, max_sweeps, threshold, _jacobi_sweep_torch)
+    B, n, m = X.shape
+    return _device_sweep_loop(X, max_sweeps, threshold, functools.partial(
+        _launch_sweep_cuda, variant=_sv_variant(B, n, m, X.element_size())))
+
+
+_plain_sweep_loop = functools.partial(_host_sweep_loop, sweep=_jacobi_sweep_torch)
+
+
+def _orthogonalize_columns(X: torch.Tensor, max_sweeps: int, tol: float,
+                           loop) -> torch.Tensor:
+    """Sweep X [B, n, m] (rows = the columns of A) with ``loop`` (X,
+    max_sweeps, threshold) until every pair overlap of a whole sweep is
+    below tol * sigma_max^2, or max_sweeps.  All matrices of the call run
+    the same number of sweeps (the exit reads the batch max, as the JAX
+    while_loop does).  Returns rows = left singular vectors of A scaled by
+    its singular values (unsorted)."""
     n = X.shape[1]
     if n % 2:
         raise ValueError("row count must be even for the tournament")
     if n == 2:
         return _rotate_single_pair(X)[0]
-    threshold = _exit_threshold(tol)
     # one fresh contiguous buffer with the conjugation applied: the CUDA
-    # kernel rotates it in place
+    # kernels rotate it in place
     X = torch.empty(X.shape, dtype=X.dtype, device=X.device).copy_(X)
-    for _ in range(max_sweeps):
-        X, measure = sweep(X)
-        if float(measure.amax().to(torch.float32)) < threshold:
-            break
-    return X
+    return loop(X, max_sweeps, _exit_threshold(tol))
 
 
 def _sigma_sort_floor(X: torch.Tensor, extras=()):
@@ -409,7 +573,7 @@ def _cols_to_sv(X: torch.Tensor, polish: int):
     return S, V
 
 
-def _jacobi_sv(theta, max_sweeps, tol, polish, sweep):
+def _jacobi_sv(theta, max_sweeps, tol, polish, loop):
     if max_sweeps is None:
         max_sweeps = 24 if theta.dtype == torch.complex128 else 12
     if tol is None:
@@ -423,7 +587,7 @@ def _jacobi_sv(theta, max_sweeps, tol, polish, sweep):
     if m != n or n % 2:
         raise ValueError(f"jacobi_sv requires square even-n theta, got {m}x{n}")
     X = theta.reshape(-1, m, n).conj()      # rows of X = columns of theta^H
-    S, V = _cols_to_sv(_orthogonalize_columns(X, max_sweeps, tol, sweep),
+    S, V = _cols_to_sv(_orthogonalize_columns(X, max_sweeps, tol, loop),
                        polish)
     S, V = S.reshape(*lead, n), V.reshape(*lead, n, n)
     if squeeze:
@@ -439,20 +603,21 @@ def jacobi_sv(theta: torch.Tensor, max_sweeps: int | None = None,
     yields V directly as the normalized rotated columns (no V accumulator).
     S descending; V's columns for sigma ~ 0 carry direction noise (masked
     by truncation downstream).  Defaults: 12 sweeps / tol 3e-8 for
-    complex64, 24 / 1e-14 for complex128.  A CUDA tensor runs the CUDA
-    sweep kernel, a CPU tensor its torch twin.
+    complex64, 24 / 1e-14 for complex128.  A CUDA tensor runs a kernel-1
+    variant with the exit on the device (``_sweep_loop``), a CPU tensor the
+    torch twin.
     """
     global CUDA_SV_CALLS
     if theta.device.type == "cuda" and theta.shape[-1] > 2:
         CUDA_SV_CALLS += 1
-    return _jacobi_sv(theta, max_sweeps, tol, polish, _sweep)
+    return _jacobi_sv(theta, max_sweeps, tol, polish, _sweep_loop)
 
 
 def jacobi_sv_plain(theta: torch.Tensor, max_sweeps: int | None = None,
                     tol: float | None = None, polish: int = 0):
-    """``jacobi_sv`` through the torch twin on any device: the plain
-    version the CUDA kernel is held against."""
-    return _jacobi_sv(theta, max_sweeps, tol, polish, _jacobi_sweep_torch)
+    """``jacobi_sv`` through the torch twin and the host loop on any device:
+    the plain version the CUDA kernels are held against."""
+    return _jacobi_sv(theta, max_sweeps, tol, polish, _plain_sweep_loop)
 
 
 def _orthogonalize_columns_v(X: torch.Tensor, max_sweeps: int, tol: float,
