@@ -33,10 +33,22 @@ tests/exact_reference.py.  Phases:
      fixed chi=256 merged periods of one chain (kernel 1 at n=512), each
      with its kernel-1 launches and sweeps (device counter) and its host
      syncs (torch's sync debug mode); then a profile of the window;
-  7. the long-range TDVP path against the dense oracle (L=10, chi=32, 10
+  7. the saturated-chi steady leg: jacobi_proj, jacobi_core and
+     csvd_topk('jacobi_core_fast') on complex64 [4, 512, 512] against LAPACK
+     at the JAX package's compiled-kernel thresholds, with the quintic
+     stage's precisions timed and their dense-spectrum defect; kernel 1 on
+     this path's shapes against the host loop and the twin, timed; bench.py's
+     settled L=40, chi=256 state (40 merged periods on 'jacobi'), then 10
+     timed periods per SVD method, the 50-period closed-loop gate against
+     'jacobi', and chi=512 on 'jacobi_core';
+  8. the fixed-chi ensemble: the phase diagram's 120-point grid (L=16,
+     chi_pad=32, 80 periods) and one 40-point chunk of the drive-strength
+     diagram (a kick per realization, chi_pad=48), each with A2T against
+     the host recipe;
+  9. the long-range TDVP path against the dense oracle (L=10, chi=32, 10
      periods, theta = pi and the entangling 0.92 pi, the latter also against
      a complex128 CPU run of the same TDVP), then at the interaction-range
-     diagram's widths (L=12, chi=48, 24 periods, alpha in {1.5, None};
+     diagram's widths (L=12, chi=48, 12 periods, alpha in {1.5, None};
      every split on the resident kernel 2 at n=96), with a profile of its
      time.
 
@@ -64,8 +76,9 @@ LADDER = (64, 96, 144, 216, 328, 496, 512)   # n = 2 chi, chi 32 -> 256 x1.5
 CONFIG = dict(L=40, chi=256, theta_frac=0.9, h=0.3, tau=1.0, seed=42, R=16,
               n_periods=20, chi_start=32, chunk=5, growth=1.5, svd_min=1e-7)
 # the interaction-range diagram (main.py --range-diagram with config.txt:
-# J=1, T_DRIVE=2 -> tau=1, H_MAX=0.3, seed 42) at its eps=0.05 curve
-RANGE = dict(L=12, chi=48, n_periods=24, substeps=2, J=1.0, h=0.3, tau=1.0,
+# J=1, T_DRIVE=2 -> tau=1, H_MAX=0.3, seed 42) at its eps=0.05 curve, cut
+# from its 24 periods to 12 (the script's time limit)
+RANGE = dict(L=12, chi=48, n_periods=12, substeps=2, J=1.0, h=0.3, tau=1.0,
              theta_frac=0.95, seed=42, alphas=(1.5, None))
 # the card's peaks (H100 SXM data sheet): HBM bytes/s, float32 and float64
 # FLOP/s outside the tensor cores
@@ -128,13 +141,14 @@ def _event_ms(fn, args_list):
     return t0.elapsed_time(t1) / (len(args_list) - 1)
 
 
-def _library_ms(M):
-    """torch.linalg.svd of the batch M: the yardstick of a sweep kernel (the
-    port never calls it on these paths)."""
+def _library_ms(M, reps=3):
+    """torch.linalg.svd of the batch M (mean of ``reps`` calls after one):
+    the yardstick of a sweep kernel (the port never calls it on these
+    paths)."""
     import torch
 
     return _event_ms(lambda x: torch.linalg.svd(x, full_matrices=False),
-                     [(M,)] * 4)
+                     [(M,)] * (reps + 1))
 
 
 def _tebd_like(gen, B: int, n: int, dtype):
@@ -235,9 +249,9 @@ def _kernel1_call(th, **kwargs):
     return out, "smem" if smem else "cluster", int(counter) - s0
 
 
-def _host_loop_sv(th, sweep, max_sweeps=None, polish=0):
-    """(jacobi_sv(th) with the sweep loop on the host, one sweep(X) call and
-    one host read per sweep; the number of sweeps it ran)."""
+def _counted_host_loop(sweep):
+    """(the sweep loop on the host over ``sweep``, one host read per sweep;
+    a list whose first item counts the sweeps it runs)."""
     from timecrystal_tpu_torch.ops import jacobi_svd as J
 
     count = [0]
@@ -246,11 +260,24 @@ def _host_loop_sv(th, sweep, max_sweeps=None, polish=0):
         count[0] += 1
         return sweep(X)
 
-    out = J._jacobi_sv(th, max_sweeps, None, polish, functools.partial(
-        J._host_sweep_loop, sweep=counted))
-    return out, count[0]
+    return functools.partial(J._host_sweep_loop, sweep=counted), count
 
 
+def _host_loop_sv(th, sweep, max_sweeps=None, polish=0, tol=None):
+    """(jacobi_sv(th) with the sweep loop on the host over ``sweep``; the
+    number of sweeps it ran).  tol=0 runs exactly ``max_sweeps``."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    loop, count = _counted_host_loop(sweep)
+    return J._jacobi_sv(th, max_sweeps, tol, polish, loop), count[0]
+
+
+# the widest n at which the window's call shape [320, n, n] is held against
+# the twin loop over the whole batch; above it the twin loop takes every
+# TWIN320_STRIDE-th matrix (the twin's batch-320 loop costs ~7.6 s a sweep
+# at n = 512)
+TWIN320_MAX_N = 216
+TWIN320_STRIDE = 8
 # one sweep timed at the window's three call shapes (R * bonds = 320
 # matrices at chi 32, 48, 72) and the n=512 leg's
 SWEEP_SHAPES = ((320, 64), (320, 96), (320, 144), (20, 512))
@@ -358,32 +385,48 @@ def phase_kernels():
         _check(variant == J._sv_variant(20, n, n, 8), f"n={n} ran {variant}")
         # the window's call shape (R * bonds = 320 matrices), default cap,
         # timed: the device exit reads 320 measures and the launches run in
-        # waves.  The same checks: S against the twin loop, the sweeps and S
-        # against the host loop over the same kernel
+        # waves.  The same checks: the sweeps and S against the host loop
+        # over the same kernel, S and the sweeps against the twin loop.
+        # Above TWIN320_MAX_N the twin loop runs every TWIN320_STRIDE-th
+        # matrix (spread over the batch's clusters and waves) for exactly the
+        # device exit's sweeps: S is held against those matrices' S, and
+        # its sweeps, fixed so, are not compared
         th = _tebd_like(gen, 320, n, torch.complex64)
         ((Sk, _), v320, sw320), t_k = _timed(
             lambda: _kernel1_call(th, polish=n // 2), reps=3)
         (Sh, _), sw_host320 = _host_loop_sv(th, J._jacobi_sweep_cuda, None, n // 2)
-        ((St, _), sw_twin320), t_t = _timed(
-            lambda: _host_loop_sv(th, J._jacobi_sweep_torch, None, n // 2))
-        err320 = float((Sk - St).abs().max() / St.max())
-        worst = max(worst, float((Sk - St).abs().max()))
+        whole = n <= TWIN320_MAX_N
+        sub = slice(None) if whole else slice(None, None, TWIN320_STRIDE)
+        if whole:
+            ((St, _), sw_twin320), t_t = _timed(
+                lambda: _host_loop_sv(th, J._jacobi_sweep_torch, None, n // 2))
+        else:
+            ((St, _), sw_twin320), t_t = _timed(lambda: _host_loop_sv(
+                th[sub].contiguous(), J._jacobi_sweep_torch, sw320, n // 2,
+                tol=0.0))
+        twin_of = ("the twin loop" if whole else
+                   f"the twin loop over every {TWIN320_STRIDE}th matrix "
+                   f"({St.shape[0]}) for the device exit's sweeps")
+        err320 = float((Sk[sub] - St).abs().max() / St.max())
+        worst = max(worst, float((Sk[sub] - St).abs().max()))
         print(f"[kernel-vs-twin f32] n={n} ({variant}): one sweep [20, {n}, {n}] "
               f"measure rel {meas_rel:.2e} (< 1e-6), X^H X drift {gram:.2e} (< 1e-5); "
               f"jacobi_sv S err {err:.2e} x sigma_max (< 1e-5); sweeps: device exit "
               f"{sw}, host loop over the kernel {sw_host} (S identical: "
               f"{same}), twin loop {sw_twin}; at [320, {n}, {n}] "
-              f"({v320}, default cap): S err {err320:.2e} x sigma_max (< 1e-5), "
-              f"sweeps: device exit {sw320}, host loop over the kernel "
-              f"{sw_host320}, twin loop {sw_twin320}; per call kernel "
-              f"{t_k * 1e3:.1f} ms, twin {t_t * 1e3:.1f} ms", flush=True)
+              f"({v320}, default cap): S err {err320:.2e} x sigma_max (< 1e-5) "
+              f"against {twin_of}, sweeps: device exit {sw320}, host loop "
+              f"over the kernel {sw_host320}, twin loop {sw_twin320}; per call "
+              f"kernel {t_k * 1e3:.1f} ms, twin {t_t * 1e3:.1f} ms "
+              f"({St.shape[0]} matrices)", flush=True)
         _check(err320 < 1e-5, f"f32 S at [320, {n}, {n}] differs from the twin: "
                f"{err320}")
         _check(sw320 == sw_host320 and torch.equal(Sk, Sh),
                f"device exit at [320, {n}, {n}]: {sw320} sweeps, host loop "
                f"{sw_host320}")
-        _check(abs(sw320 - sw_twin320) <= 1,
-               f"sweeps at [320, {n}, {n}]: {sw320}, twin {sw_twin320}")
+        if whole:
+            _check(abs(sw320 - sw_twin320) <= 1,
+                   f"sweeps at [320, {n}, {n}]: {sw320}, twin {sw_twin320}")
         _check(v320 == J._sv_variant(320, n, n, 8), f"[320, {n}, {n}] ran {v320}")
         del th, Sk, Sh, St
 
@@ -858,15 +901,61 @@ def phase_real_size():
     return {v: win[v] + leg[v] for v in ("smem", "cluster")}, info["wall_time"]
 
 
+# device-time classes of the profiles: (label, fragments of the kernel's
+# lower-case name); a kernel falls in the first class that names it
+KERNEL1_CLASSES = (("kernel 1 smem", ("jacobi_sv_smem",)),
+                   ("kernel 1 cluster", ("jacobi_sv_cluster",)))
+MATMUL_CLASS = ("matmul / einsum", ("gemm", "gemv", "xmma", "cutlass", "bmm",
+                                    "dot"))
+
+
+def _profile(fn, classes):
+    """torch.profiler over fn(), synchronized: (wall ms, device ms by class,
+    launches by class, CUDA runtime synchronize calls).  Kernels no class
+    names go to 'other'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ms = {label: 0.0 for label, _ in classes}
+    ms["other"] = 0.0
+    launches = dict.fromkeys(ms, 0)
+    n_sync = 0
+    for evt in prof.key_averages():
+        if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            n_sync += evt.count
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.key.lower()
+        label = next((lb for lb, frags in classes
+                      if any(f in name for f in frags)), "other")
+        ms[label] += float(getattr(evt, "self_device_time_total", 0.0)) / 1e3
+        launches[label] += evt.count
+    return wall, ms, launches, n_sync
+
+
+def _profile_line(wall, ms, unprofiled_ms):
+    """The profiled wall, device busy time and idle share (also against the
+    unprofiled run's ms: the profiler slows the host) and the device time
+    by class."""
+    busy = sum(ms.values())
+    parts = ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.0%})"
+                      for k, v in ms.items())
+    return (f"wall {wall:.1f} ms (profiled), device busy {busy:.1f} ms, idle "
+            f"share {1 - busy / wall:.3f} (against the unprofiled "
+            f"{unprofiled_ms:.1f} ms: {1 - busy / unprofiled_ms:.3f}); {parts}")
+
+
 def phase_window_profile(window_s: float):
     """Where the window's time goes: torch.profiler over a second run of the
     window (the kernels built and the chi ladder's schedules cached),
     device time by class, the device's idle share and the runtime's
-    synchronize calls.  The profiler slows the host, so the idle share is
-    also given against ``window_s``, the unprofiled window's seconds."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    synchronize calls; ``window_s`` is the unprofiled window's seconds."""
     from timecrystal_tpu_torch.core.truncate import TruncParams
     from timecrystal_tpu_torch.models.kicked_ising import draw_disorder_reference
     from timecrystal_tpu_torch.parallel.sweep import (SweepSpec, _basis_indices,
@@ -880,46 +969,15 @@ def phase_window_profile(window_s: float):
                      theta=c["theta_frac"] * float(np.pi),
                      tp=TruncParams(chi_max=0, svd_min=c["svd_min"]),
                      dtype="float32", frame="merged")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, info = evolve_batch_auto(
-            h, np.full(R, c["tau"]), _basis_indices(L, "neel"), spec,
-            chi_start=c["chi_start"], chunk_periods=c["chunk"],
-            growth=c["growth"], device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    classes = {"kernel 1 smem": 0.0, "kernel 1 cluster": 0.0,
-               "matmul / einsum": 0.0, "other": 0.0}
-    launches = {"kernel 1 smem": 0, "kernel 1 cluster": 0}
-    n_sync = 0
-    for evt in prof.key_averages():
-        if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
-            n_sync += evt.count
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = float(getattr(evt, "self_device_time_total", 0.0)) / 1e3   # ms
-        name = evt.key.lower()
-        if "jacobi_sv_smem" in name:
-            classes["kernel 1 smem"] += t
-            launches["kernel 1 smem"] += evt.count
-        elif "jacobi_sv_cluster" in name:
-            classes["kernel 1 cluster"] += t
-            launches["kernel 1 cluster"] += evt.count
-        elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass", "bmm", "dot")):
-            classes["matmul / einsum"] += t
-        else:
-            classes["other"] += t
-    busy = sum(classes.values())
-    parts = ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.0%})"
-                      for k, v in classes.items())
-    print(f"[window-profile] {R * c['n_periods']} chain-periods: wall "
-          f"{wall * 1e3:.1f} ms (profiled), device busy {busy:.1f} ms, idle "
-          f"share {1 - busy / (wall * 1e3):.3f} (against the unprofiled "
-          f"{window_s * 1e3:.1f} ms: {1 - busy / (window_s * 1e3):.3f}); "
-          f"{parts}; kernel-1 launches "
-          f"{launches}; {n_sync} CUDA runtime synchronize calls", flush=True)
-    _check(launches["kernel 1 smem"] > 0, "the profiled window ran no kernel 1")
+    wall, ms, launches, n_sync = _profile(lambda: evolve_batch_auto(
+        h, np.full(R, c["tau"]), _basis_indices(L, "neel"), spec,
+        chi_start=c["chi_start"], chunk_periods=c["chunk"],
+        growth=c["growth"], device="cuda"), KERNEL1_CLASSES + (MATMUL_CLASS,))
+    k1 = {k: v for k, v in launches.items() if k.startswith("kernel 1")}
+    print(f"[window-profile] {R * c['n_periods']} chain-periods: "
+          f"{_profile_line(wall, ms, window_s * 1e3)}; kernel-1 launches {k1}; "
+          f"{n_sync} CUDA runtime synchronize calls", flush=True)
+    _check(k1["kernel 1 smem"] > 0, "the profiled window ran no kernel 1")
 
 
 def _oracle_traces(oracle, L, couplings, h_fields, tau, theta, n):
@@ -1100,7 +1158,6 @@ def phase_range_profile(period_s: float):
     profiler slows the host, so the idle share is also given against
     ``period_s``, the range leg's unprofiled seconds per period."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from timecrystal_tpu_torch.core.mps import create_initial_state
     from timecrystal_tpu_torch.models.long_range import LongRangeKickedIsing
@@ -1115,44 +1172,633 @@ def phase_range_profile(period_s: float):
                                dtype=torch.complex64, device="cuda")
     for _ in range(4):                         # past the low-rank start
         psi = model.floquet_step(psi)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        psi = model.floquet_step(psi)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    classes = {"kernel 2 resident": 0.0, "kernel 2 per-sweep": 0.0,
-               "eigh (cuSOLVER)": 0.0, "matmul / einsum": 0.0, "other": 0.0}
-    n_sync = 0
-    for evt in prof.key_averages():
-        if evt.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
-            n_sync += evt.count
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = float(getattr(evt, "self_device_time_total", 0.0)) / 1e3   # ms
-        name = evt.key.lower()
-        if "jacobi_svd_resident" in name:
-            classes["kernel 2 resident"] += t
-        elif "jacobi_sweep" in name:
-            classes["kernel 2 per-sweep"] += t
-        elif any(k in name for k in ("syevd", "sytrd", "stedc", "ormtr",
-                                     "syevj", "heevd", "hetrd", "lapack",
-                                     "eigh", "steqr", "sterf", "larf")):
-            classes["eigh (cuSOLVER)"] += t
-        elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass",
-                                     "bmm", "dot")):
-            classes["matmul / einsum"] += t
+    eigh = ("syevd", "sytrd", "stedc", "ormtr", "syevj", "heevd", "hetrd",
+            "lapack", "eigh", "steqr", "sterf", "larf")
+    wall, ms, _, n_sync = _profile(lambda: model.floquet_step(psi), (
+        ("kernel 2 resident", ("jacobi_svd_resident",)),
+        ("kernel 2 per-sweep", ("jacobi_sweep",)), ("eigh (cuSOLVER)", eigh),
+        MATMUL_CLASS))
+    print(f"[range-profile] 1 period, alpha={c['alphas'][0]}: "
+          f"{_profile_line(wall, ms, period_s * 1e3)}; {n_sync} CUDA runtime "
+          f"synchronize calls", flush=True)
+
+
+# --- the saturated-chi steady leg and the fixed-chi ensemble ---------------
+
+# the projected SVDs' compiled-kernel acceptance of the JAX package
+# (tests/test_tpu_smoke.py: jacobi_proj / jacobi_core against LAPACK, the
+# jacobi_core_fast certificate check), run on the card: [4, 512, 512]
+# panels, k = 256
+PROJ_N, PROJ_K = 512, 256
+# bench.py's certificate slack per bond update: 2x the kept-weight
+# overshoot ceiling that [proj-vs-lapack] asserts on the card
+CERT_SLACK_PER_BOND = 1e-4
+OVERSHOOT_CEILING = 5e-5
+# the closed-loop class the reference recorded (max |d stag|, max |d LE|
+# over 50 steady periods against 'jacobi': bench.py:156 for jacobi_core,
+# ops/csvd.py:437 of the JAX package for the tuned jacobi_proj) and the
+# bound applied here, CLOSED_LOOP_FACTOR times it
+CLOSED_LOOP_CLASS = {"jacobi_core": (4.7e-4, 1.5e-3),
+                     "jacobi_core_fast": (4.7e-4, 1.5e-3),
+                     "jacobi_proj": (1.1e-3, 7.5e-4)}
+CLOSED_LOOP_FACTOR = 2.0
+STEADY = dict(n_settle=40, n_steady=10, n_closed=50, n_settle512=10,
+              n_steady512=5)
+STEADY_METHODS = ("jacobi_core_fast", "jacobi_core", "jacobi_proj", "jacobi")
+# the phase diagram (analysis/phase_diagram.py GRID_HARDCODED with
+# config.txt: SVD_MIN 1e-12, SVD_CUTOFF 1e-7, RANDOM_SEED 42) and one
+# 40-point chunk of its drive-strength diagram (chi_pad 48, T_DRIVE 2)
+GRID = dict(L=16, chi=32, n_periods=80, chi_max=24, svd_min=1e-12,
+            trunc_cut=1e-7, h=(0.0, 0.8, 12), T=(0.8, 4.0, 10), seed=42,
+            n_profiled=20, n_reference=4)
+# a grid's points on the card against the same points in complex128 on the
+# host CPU with LAPACK splits, max |d sz| and |d LE|: over the periods before
+# the reference first discards more than GRID_EXACT_TRUNC on a bond
+# (complex64 rounding only: a wrong kick shows from the first period), and
+# over the whole run, where truncation at chi_max amplifies the float32
+# Jacobi's rounding in the small singular vectors (PERF.md)
+GRID_EXACT_TRUNC = 1e-8
+GRID_REFERENCE_TOL = dict(exact=1e-4, truncated=1e-2)
+DRIVE = dict(chi=48, eps=(0.0, 0.2, 8), h=(0.0, 0.8, 5), T_drive=2.0)
+# kernel 1 on this slice's shapes: (B, rows, row length, exit tolerance;
+# None = the complex64 default 3e-8): jacobi_proj's panel, the k x k core,
+# and the phase and drive grids' batches
+NEW_SHAPES = ((20, 256, 512, 1e-6), (20, 256, 256, 1e-6), (1800, 64, 64, None),
+              (600, 96, 96, None))
+
+
+def _proj_panels(spectra, B=4, seed=11, unit=False):
+    """complex64 [B, n, n] = Q1 diag(s) Q2^H for each spectrum s of length
+    n: the JAX package's compiled-kernel inputs (RandomState(seed) Haar
+    draws, one stream for all spectra); ``unit`` scales s to unit Frobenius
+    norm."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for s in spectra:
+        n = len(s)
+        s = s / max(np.linalg.norm(s), 1e-30) if unit else s
+        M = np.zeros((B, n, n), np.complex64)
+        for i in range(B):
+            q1, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
+            q2, _ = np.linalg.qr(rng.randn(n, n) + 1j * rng.randn(n, n))
+            M[i] = (q1 * s) @ q2.conj().T
+        out.append(M)
+    return out
+
+
+def _proj_errors(Sref, S, V, disc):
+    """(S error x sigma_max, max |V^H V - I|, disc conservative) of a
+    projected top-k SVD against LAPACK's ``Sref``, as the JAX package's
+    smoke tier measures them (disc may undershoot the true tail by the
+    float32 Frobenius reduction's noise, 1e-4 ||theta||^2)."""
+    k = S.shape[-1]
+    serr = float(np.max(np.abs(S.cpu().numpy() - Sref[:, :k])) / Sref.max())
+    Vk = V.cpu().numpy().astype(np.complex128)
+    off = float(np.abs(np.einsum("bji,bjk->bik", Vk.conj(), Vk)
+                       - np.eye(Vk.shape[-1])[None]).max())
+    d_true = np.sum(Sref[:, k:] ** 2, axis=1)
+    cons = bool(np.all(disc.cpu().numpy()
+                       >= d_true - 1e-4 * np.sum(Sref ** 2, axis=1)))
+    return serr, off, cons
+
+
+def phase_projected():
+    """jacobi_proj, jacobi_core and csvd_topk('jacobi_core_fast') on complex64
+    [4, 512, 512] against LAPACK, each through kernel 1 (its launch
+    counters move); the kept-weight overshoot behind the certificate slack;
+    and, for both quintic precisions, the stage's time at [20, 512, 256]
+    and the dense-spectrum orthonormality defect of jacobi_core with it.
+    Returns the overshoots and the per-mode numbers."""
+    import torch
+
+    from timecrystal_tpu_torch.ops import csvd as CS
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    n, k = PROJ_N, PROJ_K
+    (M,) = _proj_panels([np.logspace(0, -7, n)])
+    Sref = np.linalg.svd(M.astype(np.complex128), compute_uv=False)
+    th = torch.as_tensor(M, device="cuda")
+    proj_kw = dict(polish=k, polish_b_iters=6, polish_iters=6)
+    for name, fn, plain in (
+            ("jacobi_proj", J.jacobi_proj, J.jacobi_proj_plain),
+            ("jacobi_core", J.jacobi_core, J.jacobi_core_plain)):
+        kw = proj_kw if name == "jacobi_proj" else {}
+        a0, c0 = J.SV_SMEM_LAUNCHES, J.SV_CLUSTER_LAUNCHES
+        s0 = int(J.sweep_counter("cuda:0"))
+        S, V, disc = fn(th, k, **kw)
+        smem, cluster = J.SV_SMEM_LAUNCHES - a0, J.SV_CLUSTER_LAUNCHES - c0
+        launches = smem + cluster
+        sweeps = int(J.sweep_counter("cuda:0")) - s0
+        serr, off, cons = _proj_errors(Sref, S, V, disc)
+        # against the same function through the twin and the host loop, on
+        # the card, both converged (jacobi_core's tol 1e-6 stops the core's
+        # loop unconverged, where two rounding paths differ by ~7e-5 in S)
+        conv = dict(kw, tol=3e-8, max_sweeps=24)
+        Sp = plain(th, k, **conv)[0]
+        perr = float((fn(th, k, **conv)[0] - Sp).abs().max() / Sp.max())
+        print(f"[proj-vs-lapack] {name} complex64 [4, {n}, {n}] logspace(0,-7), "
+              f"k={k}: S err {serr:.2e} x sigma_max (< 5e-4), max |V^H V - I| "
+              f"{off:.2e} (< 5e-5), disc conservative {cons}; converged (tol "
+              f"3e-8, cap 24) against its plain version (twin, host loop) S err "
+              f"{perr:.2e} x sigma_max (< 1e-4); "
+              f"kernel 1: {launches} launches ({cluster} cluster, {smem} smem), "
+              f"{sweeps} sweeps", flush=True)
+        _check(launches > 0 and sweeps > 0, f"{name} did not run kernel 1")
+        _check(serr < 5e-4, f"{name} S error {serr}")
+        _check(off < 5e-5, f"{name} V defect {off}")
+        _check(cons, f"{name} disc below the true tail")
+        _check(perr < 1e-4, f"{name} S differs from its plain version: {perr}")
+    # the overshoot sum S^2 - (true top-k weight) of the shipped
+    # jacobi_core_fast on unit-norm steep and rank-deficient panels
+    over = {}
+    for tag, P in zip(("steep", "rankdef"), _proj_panels(
+            [np.logspace(0, -7, n),
+             np.concatenate([np.linspace(1, 0.01, n // 4), np.zeros(n - n // 4)])],
+            unit=True)):
+        S, _, _ = CS.csvd_topk(torch.as_tensor(P, device="cuda"), k,
+                               method="jacobi_core_fast")
+        S = S.cpu().numpy().astype(np.float64)
+        Sp = np.linalg.svd(P.astype(np.complex128), compute_uv=False)
+        serr = float(np.max(np.abs(S - Sp[:, :k])) / Sp.max())
+        over[tag] = float(np.max(np.sum(S ** 2, 1) - np.sum(Sp[:, :k] ** 2, 1)))
+        print(f"[proj-vs-lapack] csvd_topk jacobi_core_fast ("
+              f"{CS.FAST_QUINTIC_PRECISION} quintic) unit-norm {tag}: S err "
+              f"{serr:.2e} x sigma_max (< 1e-3), kept-weight overshoot "
+              f"{over[tag]:.2e} per bond (< {OVERSHOOT_CEILING:.0e})", flush=True)
+        if tag == "steep":
+            _check(serr < 1e-3, f"jacobi_core_fast S error {serr}")
+        _check(over[tag] < OVERSHOOT_CEILING,
+               f"jacobi_core_fast overshoot {over[tag]} ({tag})")
+    # the quintic stage per precision: its time on the steady leg's
+    # [20, 512, 256] panel T = theta Q0, whether it changes a complex64
+    # matmul at all, and the dense-spectrum defect of jacobi_core run with
+    # it (adaptive polish: a defect that survives the polish is a collapsed
+    # span); then jacobi_core_fast's own configuration (fixed polish)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    T = (_tebd_like(gen, 20, n, torch.complex64)
+         @ J._fixed_projection_basis(n, k, torch.complex64, "cuda"))
+    G_full = T.mH @ T
+    modes = {}
+    for mode in J.QUINTIC_PRECISIONS:
+        ms = _event_ms(lambda x, mode=mode: J._poly_polar(x, 10, 4, mode),
+                       [(T,)] * 6)
+        gram_diff = float((J._qmul(T.mH, T, mode) - G_full).abs().max()
+                          / G_full.abs().max())
+        _, off, _ = _proj_errors(Sref, *J.jacobi_core(th, k, quintic_precision=mode))
+        modes[mode] = dict(ms=ms, gram_diff=gram_diff, defect=off)
+        print(f"[proj-vs-lapack] quintic {mode}: _poly_polar [20, {n}, {k}] "
+              f"(10 quintic + 4 cubic) {ms:.3f} ms; one Gram T^H T differs from "
+              f"full fp32 by {gram_diff:.2e} (relative max); jacobi_core dense-"
+              f"spectrum defect max |V^H V - I| {off:.2e}", flush=True)
+    _, Vh, _ = CS.csvd_topk(th, k, method="jacobi_core_fast")
+    Vk = Vh.mH.cpu().numpy().astype(np.complex128)
+    fast_off = float(np.abs(np.einsum("bji,bjk->bik", Vk.conj(), Vk)
+                            - np.eye(k)[None]).max())
+    fast = CS.FAST_QUINTIC_PRECISION
+    print(f"[proj-vs-lapack] jacobi_core_fast runs the quintic at '{fast}': "
+          f"dense-spectrum defect of jacobi_core at it {modes[fast]['defect']:.2e} "
+          f"(< 5e-5); jacobi_core_fast itself (fixed 4-iteration polish) "
+          f"{fast_off:.2e} on the dense spectrum (not gated: the JAX "
+          f"package gates it on the steady spectrum class)", flush=True)
+    _check(modes[fast]["defect"] < 5e-5,
+           f"the '{fast}' quintic leaves a dense-spectrum defect "
+           f"{modes[fast]['defect']}")
+    return over, modes
+
+
+def _sweep_loops_counted():
+    """(counter, restore): every call of kernel 1's sweep loop
+    (``_sweep_loop``) adds one to counter[0] until restore()."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    count, loop = [0], J._sweep_loop
+
+    def counted(X, max_sweeps, threshold):
+        count[0] += 1
+        return loop(X, max_sweeps, threshold)
+
+    J._sweep_loop = counted
+
+    def restore():
+        J._sweep_loop = loop
+    return count, restore
+
+
+def _rows_sv(X, tol, loop, max_sweeps=12):
+    """S of the rows of X after the sweep loop ``loop`` with exit tolerance
+    ``tol`` (at most ``max_sweeps``: 12 is the complex64 cap)."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    return J._cols_to_sv(J._orthogonalize_columns(X, max_sweeps, tol, loop),
+                         0)[0]
+
+
+def phase_new_shapes():
+    """Kernel 1 on this slice's shapes (NEW_SHAPES).  At the path's exit
+    tolerance: the device exit's sweeps and S against the host loop over
+    the same kernel, bit for bit, and the twin loop's sweeps (within one).
+    S against the twin loop (< 1e-5 x sigma_max) once both have converged
+    (tol 3e-8, cap 24): at tol 1e-6 both loops stop unconverged, and two
+    float32 rounding paths of an unconverged sweep differ in S by more
+    (reported).  Then one sweep and one call timed beside the bound and one
+    torch.linalg.svd of the batch."""
+    import torch
+
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    times, worst = {}, 0.0
+    for B, n, m, tol in NEW_SHAPES:
+        tol = tol or 3e-8
+        if m == 2 * n:       # jacobi_proj's panel: the columns of theta Q0
+            Q0 = J._fixed_projection_basis(m, n, torch.complex64, "cuda")
+            X = (_tebd_like(gen, B, m, torch.complex64) @ Q0).mT.contiguous()
         else:
-            classes["other"] += t
-    busy = sum(classes.values())
-    parts = ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.0%})"
-                      for k, v in classes.items())
-    print(f"[range-profile] 1 period, alpha={c['alphas'][0]}: wall "
-          f"{wall * 1e3:.1f} ms (profiled), device busy {busy:.1f} ms, idle "
-          f"share {1 - busy / (wall * 1e3):.3f} (against the unprofiled "
-          f"{period_s * 1e3:.1f} ms per period: {1 - busy / (period_s * 1e3):.3f}); "
-          f"{parts}; "
-          f"{n_sync} CUDA runtime synchronize calls", flush=True)
+            X = _tebd_like(gen, B, n, torch.complex64).conj().resolve_conj()
+        variant = J._sv_variant(B, n, m, X.element_size())
+        counter = J.sweep_counter("cuda:0")
+        s0, a0, c0 = int(counter), J.SV_SMEM_LAUNCHES, J.SV_CLUSTER_LAUNCHES
+        Sk = _rows_sv(X, tol, J._sweep_loop)
+        sw = int(counter) - s0
+        ran = ("smem" if J.SV_SMEM_LAUNCHES > a0 else "") + (
+            "cluster" if J.SV_CLUSTER_LAUNCHES > c0 else "")
+        host, sw_host = _counted_host_loop(J._jacobi_sweep_cuda)
+        Sh = _rows_sv(X, tol, host)
+        twin, sw_twin = _counted_host_loop(J._jacobi_sweep_torch)
+        St = _rows_sv(X, tol, twin)
+        err_tol = float((Sk - St).abs().max() / St.max())
+        Sc = _rows_sv(X, 3e-8, J._sweep_loop, 24)
+        Stc = _rows_sv(X, 3e-8, functools.partial(
+            J._host_sweep_loop, sweep=J._jacobi_sweep_torch), 24)
+        err = float((Sc - Stc).abs().max() / Stc.max())
+        worst = max(worst, float((Sc - Stc).abs().max()))
+        same = bool(torch.equal(Sk, Sh))
+        print(f"[kernel-1 new shapes] [{B}, {n}, {m}] tol {tol:.0e} ({ran}): sweeps: "
+              f"device exit {sw}, host loop over the kernel {sw_host[0]} (S "
+              f"identical: {same}), twin loop {sw_twin[0]} (S err {err_tol:.2e} "
+              f"x sigma_max); converged (tol 3e-8, cap 24): S err {err:.2e} x "
+              f"sigma_max against the twin loop (< 1e-5)", flush=True)
+        _check(ran == variant, f"[{B}, {n}, {m}] ran {ran!r}, not {variant!r}")
+        _check(err < 1e-5, f"S at [{B}, {n}, {m}] differs from the twin: {err}")
+        _check(sw == sw_host[0] and same,
+               f"device exit at [{B}, {n}, {m}]: {sw} sweeps, host loop "
+               f"{sw_host[0]}")
+        _check(abs(sw - sw_twin[0]) <= 1,
+               f"sweeps at [{B}, {n}, {m}]: {sw}, twin {sw_twin[0]}")
+        ms = [_event_ms(lambda x: J._jacobi_sweep_cuda(x, variant),
+                        [(X.clone(),) for _ in range(5)]) for _ in range(2)]
+        call_ms = _event_ms(lambda: _rows_sv(X, tol, J._sweep_loop), [()] * 4)
+        twin_ms = _event_ms(J._jacobi_sweep_torch, [(X.clone(),)] * 3)
+        lib = _library_ms(X, reps=1)        # seconds at batch 1800
+        bound, by, f64 = sweep_bound(B, n, m, with_v=False)
+        if variant == "smem":
+            per_sm = J.smem_occupancy(n, m, X.dtype, X.device)
+            layout = (f"{per_sm} CTAs an SM, {-(-B // (per_sm * SMS))} wave(s) "
+                      f"of {per_sm * SMS}")
+        else:
+            size, active = J.cluster_plan(B, n, m, X.dtype, X.device)
+            layout = (f"clusters of {size} CTAs, {active} co-resident, "
+                      f"{-(-B // active)} wave(s)")
+        times[(B, n, m)] = dict(ms=float(np.mean(ms)), call_ms=call_ms,
+                                variant=variant)
+        print(f"[sweep time] one sweep, complex64 [{B}, {n}, {m}], {variant} "
+              f"variant ({layout}): {' / '.join(f'{t:.4f}' for t in ms)} ms; "
+              f"one call ({sw} sweeps, tol {tol:.0e}) {call_ms:.3f} ms; twin "
+              f"{twin_ms:.3f} ms per sweep, bound {bound:.4f} ms ({by}; FP64 "
+              f"FLOPs {f64:.4f} ms), torch.linalg.svd {lib:.3f} ms", flush=True)
+        del X, Sk, Sh, St, Sc, Stc
+    return times, worst
+
+
+def _settled_state():
+    """bench.py's _steady_state on the card: L=40, chi=256, theta=0.9 pi,
+    h=0.3, tau=1, seed 42 fields (float32), Neel, svd_min=1e-7, 40 merged
+    periods on 'jacobi'.  Returns (psi, gates, tp, kernel-1 counts)."""
+    import torch
+
+    from timecrystal_tpu_torch.core.mps import create_initial_state
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.dynamics.tebd import evolve_floquet_scan
+    from timecrystal_tpu_torch.models.kicked_ising import (
+        draw_disorder_reference, make_floquet_gates)
+
+    c = CONFIG
+    h = draw_disorder_reference(c["L"], c["h"], c["seed"])
+    gates = make_floquet_gates(1.0, torch.as_tensor(h, dtype=torch.float32,
+                                                    device="cuda"),
+                               c["tau"], theta=c["theta_frac"] * np.pi,
+                               dtype=torch.complex64)
+    tp = TruncParams(chi_max=0, svd_min=c["svd_min"], svd_method="jacobi")
+    psi0 = create_initial_state(c["L"], "neel", chi=c["chi"],
+                                dtype=torch.complex64, device="cuda")
+    _reset_kernel1_counts()              # the settle's counts start here
+    (psi, tr), dt = _timed(lambda: evolve_floquet_scan(
+        psi0, gates, STEADY["n_settle"], tp, frame="merged"))
+    k1 = _kernel1_counts()
+    chi_eff = int(tr["max_chi"][-1])
+    print(f"[steady-settle] L={c['L']} chi={c['chi']} {STEADY['n_settle']} merged "
+          f"periods on 'jacobi' from Neel: {dt:.1f} s "
+          f"({STEADY['n_settle'] / dt:.3f} periods/s); max_chi at the end "
+          f"{chi_eff}; {k1['sweeps']} sweeps in {k1['launches']} launches "
+          f"({k1['cluster']} cluster)", flush=True)
+    _check(chi_eff == c["chi"], f"the settled state is not saturated: {chi_eff}")
+    _check(k1["sweeps"] > 0, "the settle ran no kernel-1 sweep")
+    return psi, gates, tp, k1
+
+
+def _run_steady(psi, gates, tp, n):
+    """n merged periods from psi, their traces fetched to the host."""
+    from timecrystal_tpu_torch.dynamics.tebd import evolve_floquet_scan, to_host
+
+    psi, tr = evolve_floquet_scan(psi, gates, n, tp, frame="merged")
+    return psi, to_host(tr)
+
+
+def _time_steady(psi, gates, tp, n):
+    """bench.py's _time_steady: best of 3 periods/s after one run, and the
+    last run's traces."""
+    best, tr = 0.0, None
+    for _ in range(3):
+        (_, tr), dt = _timed(lambda: _run_steady(psi, gates, tp, n))
+        best = max(best, n / dt)
+    return best, tr
+
+
+def phase_steady(psi, gates, tp):
+    """The saturated steady leg: from the settled state, STEADY['n_steady']
+    merged periods per method, best of 3 (bench.py's run_steady,
+    run_steady_exact).  One counted run first: SVD calls (csvd_topk calls),
+    kernel-1 sweep loops, sweeps (device counter), launches per variant,
+    NS-polish host reads and host syncs (torch's sync debug mode).  Returns
+    each run's kernel-1 launches and periods/s."""
+    from timecrystal_tpu_torch.core import truncate as TR
+    from timecrystal_tpu_torch.ops import csvd as CS
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    n, L = STEADY["n_steady"], CONFIG["L"]
+    out = {}
+    for method in STEADY_METHODS:
+        tpm = tp._replace(svd_method=method)
+        _reset_kernel1_counts()              # this run's counts start here
+        J.NS_HOST_READS = 0
+        svd_calls, csvd_topk = [0], TR.csvd_topk
+
+        def counted(*a, **kw):
+            svd_calls[0] += 1
+            return csvd_topk(*a, **kw)
+
+        TR.csvd_topk = counted
+        loops, restore = _sweep_loops_counted()
+        try:
+            (_, tr), syncs = _with_sync_count(
+                lambda: _run_steady(psi, gates, tpm, n))
+        finally:
+            TR.csvd_topk = csvd_topk
+            restore()
+        c, ns_reads = _kernel1_counts(), J.NS_HOST_READS
+        rate, tr = _time_steady(psi, gates, tpm, n)
+        for k, v in tr.items():
+            _check(bool(np.all(np.isfinite(v))), f"{method}: non-finite {k}")
+        _check(c["sweeps"] > 0 and c["launches"] > 0 and c["host_reads"] == 0,
+               f"{method} did not run kernel 1: {c}")
+        cert = mode = ""
+        if method == "jacobi_core_fast":
+            mode = f" ({CS.FAST_QUINTIC_PRECISION} quintic)"
+            cert = (f"; certificate max trunc_err + {L - 1} x "
+                    f"{CERT_SLACK_PER_BOND:.0e} = "
+                    f"{float(np.max(tr['trunc_err'])) + (L - 1) * CERT_SLACK_PER_BOND:.4e}"
+                    f" per period (max trunc_err {float(np.max(tr['trunc_err'])):.3e})")
+        print(f"[steady] {method}{mode}: "
+              f"{rate:.3f} periods/s (best of 3, {n} periods); "
+              f"{svd_calls[0] / n:.1f} SVD calls per period ({svd_calls[0]} incl. "
+              f"the frame's entry/exit), {loops[0]} kernel-1 sweep loops, "
+              f"{c['sweeps']} sweeps ({c['sweeps'] / max(loops[0], 1):.2f} per "
+              f"loop, {c['sweeps'] / max(svd_calls[0], 1):.2f} per SVD call) in "
+              f"{c['launches']} launches ({c['smem']} smem, {c['cluster']} "
+              f"cluster); host syncs {syncs / n:.1f} per period ({syncs}; "
+              f"NS-polish reads {ns_reads}){cert}", flush=True)
+        out[method] = dict(rate=rate, launches=c)
+    # where the time goes: jacobi_core_fast and 'jacobi'
+    for method in ("jacobi_core_fast", "jacobi"):
+        rate = out[method]["rate"]
+        wall, ms, launches, n_sync = _profile(
+            lambda: _run_steady(psi, gates, tp._replace(svd_method=method), n),
+            KERNEL1_CLASSES + (MATMUL_CLASS,))
+        print(f"[steady-profile] {method}, {n} periods: "
+              f"{_profile_line(wall, ms, n / rate * 1e3)}; kernel-1 launches "
+              f"{launches['kernel 1 cluster']} cluster; {n_sync} CUDA runtime "
+              f"synchronize calls", flush=True)
+    return out
+
+
+def phase_closed_loop(psi, gates, tp):
+    """bench.py's closed-loop gate (baselines/jacobi_core_closedloop.py):
+    STEADY['n_closed'] merged periods from the settled state on 'jacobi'
+    and on each projected method; max |d sz|, |d stag| and |d LE| against
+    'jacobi'.  Each projected method must stay within CLOSED_LOOP_FACTOR x
+    the reference's class.  Returns each run's kernel-1 counts."""
+    n, L = STEADY["n_closed"], CONFIG["L"]
+    signs = np.where(np.arange(L) % 2 == 0, 1.0, -1.0)
+    counts = {}
+
+    def run(method):
+        _reset_kernel1_counts()              # this run's counts start here
+        (_, tr), dt = _timed(lambda: _run_steady(
+            psi, gates, tp._replace(svd_method=method), n))
+        counts[method] = _kernel1_counts()
+        le = tr["loschmidt_echo"]
+        _check(bool(np.all(np.isfinite(tr["sz_sites"]))) and float(le.min()) >= 0
+               and float(le.max()) <= 1 + 1e-5, f"{method} closed-loop traces")
+        return tr["sz_sites"], (tr["sz_sites"] * signs).mean(-1), le, dt
+
+    sz0, st0, le0, dt0 = run("jacobi")
+    print(f"[steady-closedloop] {n} periods from the settled state, 'jacobi' "
+          f"{dt0:.1f} s; staggered (last 4) {np.round(st0[-4:], 5).tolist()}",
+          flush=True)
+    for method in STEADY_METHODS:
+        if method == "jacobi":
+            continue
+        sz, st, le, dt = run(method)
+        d = (float(np.abs(sz - sz0).max()), float(np.abs(st - st0).max()),
+             float(np.abs(le - le0).max()))
+        b_st, b_le = (CLOSED_LOOP_FACTOR * x for x in CLOSED_LOOP_CLASS[method])
+        ok = d[1] <= b_st and d[2] <= b_le
+        print(f"[steady-closedloop] {method}: max |d sz| {d[0]:.3e}, |d stag| "
+              f"{d[1]:.3e} (<= {b_st:.2e}), |d LE| {d[2]:.3e} (<= {b_le:.2e}): "
+              f"{'within' if ok else 'OUTSIDE'} {CLOSED_LOOP_FACTOR:g}x the "
+              f"reference's class; {dt:.1f} s", flush=True)
+        _check(ok, f"{method} leaves the closed-loop class: {d}")
+    return counts
+
+
+def phase_steady_chi512(psi, gates, tp):
+    """bench.py's run_steady_chi512 on 'jacobi_core': the settled state
+    padded to chi=512, STEADY['n_settle512'] settle periods, then
+    STEADY['n_steady512'] timed periods, best of 3 (the core at
+    [20, 512, 512]).  Returns the kernel-1 counts of the settle."""
+    from timecrystal_tpu_torch.core.mps import pad_mps
+
+    tpc = tp._replace(svd_method="jacobi_core")
+    _reset_kernel1_counts()
+    (psi2, tr), dt = _timed(lambda: _run_steady(pad_mps(psi, 2 * psi.chi), gates,
+                                                tpc, STEADY["n_settle512"]))
+    c = _kernel1_counts()
+    rate, tr2 = _time_steady(psi2, gates, tpc, STEADY["n_steady512"])
+    for t in (tr, tr2):
+        _check(bool(np.all(np.isfinite(t["sz_sites"]))), "chi512 traces")
+    print(f"[steady-chi512] chi=512 (n=1024, core [20, 512, 512]) on "
+          f"'jacobi_core': settle {STEADY['n_settle512']} periods {dt:.1f} s "
+          f"(max_chi {int(tr['max_chi'][-1])}), {rate:.3f} periods/s (best of "
+          f"3, {STEADY['n_steady512']} periods); settle: {c['sweeps']} sweeps in "
+          f"{c['launches']} launches ({c['cluster']} cluster). The exact chi=512 "
+          f"leg ([20, 1024, 1024] on 'jacobi') waits for the port bench", flush=True)
+    return c
+
+
+def _grid_reference(h_fields, taus, spec, thetas, idx):
+    """(traces, seconds) of the grid points ``idx`` through evolve_batch in
+    complex128 on the host CPU with LAPACK's SVD ('native'): a run that
+    shares no kernel, precision or device with the card's."""
+    from timecrystal_tpu_torch.parallel.sweep import _basis_indices, evolve_batch
+
+    t0 = time.perf_counter()
+    ref = evolve_batch(
+        np.asarray(h_fields)[idx], np.asarray(taus)[idx],
+        _basis_indices(spec.L, "neel"),
+        spec._replace(dtype="float64", tp=spec.tp._replace(svd_method="native")),
+        thetas=None if thetas is None else np.asarray(thetas)[idx],
+        device="cpu")
+    return ref, time.perf_counter() - t0
+
+
+def _grid_run(tag, h_fields, taus, spec, thetas=None):
+    """evolve_batch + ensemble_a2t of one grid on the card, with kernel 1's
+    counts and the host syncs; A2T against the host recipe per point, and
+    GRID['n_reference'] points' sz and LE traces against the same points in
+    complex128 on the host CPU (``_grid_reference``)."""
+    import torch
+
+    from timecrystal_tpu_torch.core.observables import \
+        extract_subharmonic_amplitude
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+    from timecrystal_tpu_torch.parallel.sweep import (_basis_indices,
+                                                      ensemble_a2t,
+                                                      evolve_batch)
+
+    P = len(taus)
+
+    def run():
+        return evolve_batch(h_fields, taus, _basis_indices(spec.L, "neel"),
+                            spec, thetas=thetas, device="cuda")
+
+    # the first call in a process pays one-time start-up (kernel modules,
+    # cuBLAS and FFT plans for new shapes): timed apart, then the run counted
+    _, dt_first = _timed(run)
+    _reset_kernel1_counts()                  # this path's counts start here
+    (traces, syncs), dt = _timed(lambda: _with_sync_count(run))
+    c = _kernel1_counts()
+    a2t = ensemble_a2t(traces, taus, device="cuda")
+    times = np.arange(spec.n_periods + 1)[None] * (2.0 * np.asarray(taus))[:, None]
+    host = np.array([extract_subharmonic_amplitude(
+        times[r], traces["staggered_magnetization"][r], 2.0 * taus[r])
+        for r in range(P)])
+    a2t_err = float(np.max(np.abs(a2t - host)))
+    for k, v in traces.items():
+        _check(bool(np.all(np.isfinite(v))), f"{tag}: non-finite {k}")
+    le = traces["loschmidt_echo"]
+    _check(float(le.min()) >= 0 and float(le.max()) <= 1 + 1e-5, f"{tag} LE")
+    _check(c["smem"] > 0 and c["sweeps"] > 0 and c["host_reads"] == 0,
+           f"{tag} did not run kernel 1's shared-memory variant: {c}")
+    _check(a2t_err < 1e-5, f"{tag} A2T differs from the host recipe: {a2t_err}")
+    idx = np.linspace(0, P - 1, GRID["n_reference"]).round().astype(int)
+    ref, dt_ref = _grid_reference(h_fields, taus, spec, thetas, idx)
+    exact = np.cumsum(ref["trunc_err"] > GRID_EXACT_TRUNC, axis=1) == 0
+    diff = {k: np.abs(traces[k][idx] - ref[k]) for k in ("sz_sites",
+                                                          "loschmidt_echo")}
+    d_ex = {k: float(np.max(v[exact])) for k, v in diff.items()}
+    d_all = {k: float(np.max(v)) for k, v in diff.items()}
+    tol = GRID_REFERENCE_TOL
+    print(f"[{tag}] points {idx.tolist()} against complex128 LAPACK on the "
+          f"host CPU ({dt_ref:.1f} s): before the reference truncates "
+          f"(> {GRID_EXACT_TRUNC:.0e} a bond; {exact.sum(1).tolist()} of "
+          f"{exact.shape[1]} rows) max |d sz| {d_ex['sz_sites']:.2e}, |d LE| "
+          f"{d_ex['loschmidt_echo']:.2e} (< {tol['exact']:.0e}); all rows max "
+          f"|d sz| {d_all['sz_sites']:.2e}, |d LE| {d_all['loschmidt_echo']:.2e} "
+          f"(< {tol['truncated']:.0e}); max trunc_err "
+          f"{float(traces['trunc_err'][idx].max()):.2e} (card), "
+          f"{float(ref['trunc_err'].max()):.2e} (host), max_chi "
+          f"{int(traces['max_chi'][idx].max())} / {int(ref['max_chi'].max())}",
+          flush=True)
+    _check(bool(exact[:, :5].all()), f"{tag}: the reference truncates in the "
+           f"first 4 periods")
+    _check(max(d_ex.values()) < tol["exact"] and
+           max(d_all.values()) < tol["truncated"],
+           f"{tag} differs from the complex128 host run: {d_ex}, {d_all}")
+    n = 2 * spec.chi
+    per_sm = J.smem_occupancy(n, n, torch.complex64, "cuda")
+    even = P * len(range(0, spec.L - 1, 2))
+    print(f"[{tag}] {P} points, L={spec.L} chi_pad={spec.chi} (n={n}) "
+          f"{spec.n_periods} periods: {P / dt:.2f} points/s ({dt:.2f} s, "
+          f"{P * spec.n_periods / dt:.1f} chain-periods/s; the process's first "
+          f"run {dt_first:.2f} s); {c['calls']} SVD "
+          f"calls of [{even}, {n}, {n}] and [{P * (spec.L - 1) - even}, {n}, {n}] "
+          f"({per_sm} CTAs an SM: {-(-even // (per_sm * SMS))} wave(s) of "
+          f"{per_sm * SMS}), {c['sweeps']} sweeps ({c['sweeps'] / max(c['calls'], 1):.2f} "
+          f"per call) in {c['launches']} launches ({c['smem']} smem); host syncs "
+          f"{syncs}; A2T min/max {a2t.min():.4f}/{a2t.max():.4f}, max |A2T - "
+          f"host recipe| {a2t_err:.2e} (< 1e-5); max_chi "
+          f"{int(traces['max_chi'].max())}", flush=True)
+    # where the time goes: the first GRID['n_profiled'] periods (the
+    # profiler's post-processing of all 80 takes tens of seconds)
+    n = GRID["n_profiled"]
+    wall, ms, _, n_sync = _profile(lambda: evolve_batch(
+        h_fields, taus, _basis_indices(spec.L, "neel"),
+        spec._replace(n_periods=n), thetas=thetas, device="cuda"),
+        KERNEL1_CLASSES + (MATMUL_CLASS,))
+    print(f"[{tag}-profile] {n} periods (the unprofiled reference: {n}/"
+          f"{spec.n_periods} of the run above): "
+          f"{_profile_line(wall, ms, dt * n / spec.n_periods * 1e3)}; {n_sync} "
+          f"CUDA runtime synchronize calls", flush=True)
+    return c
+
+
+def phase_phase_grid():
+    """The phase diagram's grid: phase_grid_batch + evolve_batch at
+    GRID_HARDCODED (L=16, chi_pad=32, 80 periods, theta=pi, chi_max=24),
+    12 h x 10 T, then ensemble_a2t on the staggered magnetization."""
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.parallel.sweep import SweepSpec, phase_grid_batch
+
+    g = GRID
+    spec = SweepSpec(L=g["L"], chi=g["chi"], n_periods=g["n_periods"],
+                     theta=float(np.pi), dtype="float32",
+                     tp=TruncParams(chi_max=g["chi_max"], svd_min=g["svd_min"],
+                                    trunc_cut=g["trunc_cut"]))
+    hf, taus, _, _ = phase_grid_batch(np.linspace(*g["h"]), np.linspace(*g["T"]),
+                                      spec, disorder_seed=g["seed"])
+    return _grid_run("phase-grid", hf, taus, spec)
+
+
+def phase_drive_grid():
+    """One 40-point chunk of the drive-strength diagram: evolve_batch with a
+    per-realization kick theta = pi (1 - eps), eps x h on the reference's
+    per-point disorder (one seed-42 pattern scaled by h), T_DRIVE=2,
+    chi_pad=48, 80 periods."""
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.parallel.sweep import SweepSpec
+
+    g, d = GRID, DRIVE
+    spec = SweepSpec(L=g["L"], chi=d["chi"], n_periods=g["n_periods"],
+                     theta=float(np.pi), dtype="float32",
+                     tp=TruncParams(chi_max=g["chi_max"], svd_min=g["svd_min"],
+                                    trunc_cut=g["trunc_cut"]))
+    np.random.seed(g["seed"])
+    base = np.random.uniform(-1.0, 1.0, g["L"])
+    eps, hs = (a.ravel() for a in np.meshgrid(np.linspace(*d["eps"]),
+                                              np.linspace(*d["h"]), indexing="ij"))
+    return _grid_run("drive-grid", hs[:, None] * base[None, :],
+                     np.full(len(eps), d["T_drive"] / 2.0), spec,
+                     thetas=np.pi * (1.0 - eps))
 
 
 def main() -> int:
@@ -1165,33 +1811,70 @@ def main() -> int:
     import timecrystal_tpu_torch  # noqa: F401  (sets full-precision matmuls)
 
     t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     name, smi_line = phase_device()
     phase_build()
+    stamp("build")
     k1 = phase_kernels()
+    stamp("kernel 1 checks")
     k2 = phase_v_kernels()
     resident = phase_v_resident()
     k2.update(resident, max_abs_err=max(k2["max_abs_err"], resident["max_abs_err"]))
+    stamp("kernel 2 checks")
     phase_golden()
+    stamp("golden")
     launches, window_s = phase_real_size()
     phase_window_profile(window_s)
+    stamp("window")
+    # the saturated steady leg (kernel 1's cluster variant) and the fixed-chi
+    # ensemble (its shared-memory variant): the kernel-1 launches of each
+    # run an entry point reaches (the settle, the 10-period runs, the closed
+    # loop, the chi=512 settle, both grids; each counted from 0) join the
+    # main path's
+    phase_projected()
+    new_shapes, new_worst = phase_new_shapes()
+    stamp("projected SVDs")
+    psi, gates, tp, settle = _settled_state()
+    steady = phase_steady(psi, gates, tp)
+    closed = phase_closed_loop(psi, gates, tp)
+    chi512 = phase_steady_chi512(psi, gates, tp)
+    del psi
+    stamp("steady leg")
+    grids = (phase_phase_grid(), phase_drive_grid())
+    stamp("grids")
+    for c in ((settle, chi512) + tuple(r["launches"] for r in steady.values())
+              + tuple(closed.values()) + grids):
+        for v in ("smem", "cluster"):
+            launches[v] += c[v]
     phase_tdvp_oracle()
     k2["launches"], period_s = phase_range()
     phase_range_profile(period_s)
+    stamp("range")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi_line)
     source = "timecrystal_tpu_torch/csrc/jacobi_sweep.cu"
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # kernel 1 is reported as its two variants, each with its launches on
-    # the main path (the window and the n512 leg): the shared-memory one with
-    # ms per sweep at [320, 64, 64] and at each window shape, the cluster one
-    # at [20, 512, 512].  Kernel 2 as the main path runs it, the resident
-    # variant: ms per sweep and per call at [1, 96, 96], launches one per SVD
-    # call; per_sweep_ms is the per-sweep variant's sweep on the same shape
+    # the main paths (shared memory: the window and the phase and drive
+    # grids; cluster: the n512 leg and the steady leg), ms per sweep at
+    # [320, 64, 64] (shared memory) and [20, 512, 512] (cluster), and ms per
+    # sweep at every shape timed in ms_by_shape.  Kernel 2 as the main path
+    # runs it, the resident variant: ms per sweep and per call at
+    # [1, 96, 96], launches one per SVD call; per_sweep_ms is the per-sweep
+    # variant's sweep on the same shape
+    for (B, n, m), t in new_shapes.items():
+        k1[t["variant"]]["ms_by_shape"][f"{B}x{n}x{m}"] = t["ms"]
     kernel1 = [
         {"name": f"jacobi_sv_{v}", "route": "cuda", "source": source,
          "replaces": "timecrystal_tpu/ops/pallas/jacobi_svd.py:159",
-         **{k: dict(k1[v], launches=launches[v])[k] for k in keys + ("ms_by_shape",)}}
+         **{k: dict(k1[v], launches=launches[v],
+                    max_abs_err=max(k1[v]["max_abs_err"], new_worst))[k]
+            for k in keys + ("ms_by_shape",)}}
         for v in ("smem", "cluster")]
     print(json.dumps({"kernels": kernel1 + [
         {"name": "jacobi_svd_resident", "route": "cuda", "source": source,

@@ -24,7 +24,8 @@ ENTRY_POINTS = [
     gates.pauli_c, gates.pi_pulse_gate, gates.x_rotation_gate,
     observables.staggered_signs, truncate.swap_gate, convert.complex_from_pair,
     convert.mps_from_numpy, convert.gates_from_numpy, convert.mpo_from_numpy,
-    kicked_ising.KickedIsingModel, sweep.evolve_batch_auto, tdvp.build_mpo,
+    kicked_ising.KickedIsingModel, sweep.evolve_batch_auto, sweep.evolve_batch,
+    sweep.disorder_ensemble, sweep.ensemble_a2t, tdvp.build_mpo,
     tdvp.spin_chain_mpo, tdvp.ising_fields_mpo, tdvp.TDVPEvolution,
     tdvp.TDVPEvolution.from_spin_chain, tdvp.TDVPFloquetEvolution,
     long_range.build_fsm_mpo, long_range.long_range_ising_mpo,
@@ -53,6 +54,28 @@ assert not bad, bad
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_and_smoke_name_no_jax_import():
+    """No import statement anywhere in the port's modules or in
+    chip_smoke.py -- at top level or inside a function, which the import
+    check above cannot reach -- names jax or the JAX package."""
+    import ast
+
+    files = sorted((REPO / "timecrystal_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "timecrystal_tpu")]
+    assert len(files) >= 13 and not bad, bad
 
 
 def test_port_sets_full_precision_matmuls():

@@ -72,11 +72,26 @@ def test_stage_tp_pins_jacobi_on_cuda_only():
 @pytest.mark.parametrize("arg", ["checkpoint_dir", "mesh", "cap_svd_method",
                                  "correlation_site"])
 def test_unported_arguments_raise(arg):
+    """evolve_batch_auto's options that are not ported raise naming their
+    ROADMAP item.  ``cap_svd_method`` is ported: at L=4 the cap (chi 4) is
+    the full rank, so the run with the cap chunks on 'jacobi_core' gives
+    the traces of the run without it to 1e-8."""
     spec = tsw.SweepSpec(L=4, chi=4, n_periods=1, dtype="float64")
+    args = (np.zeros((1, 4)), np.ones(1), tsw._basis_indices(4, "neel"))
+    if arg == "cap_svd_method":
+        spec = spec._replace(n_periods=4, theta=0.9 * np.pi)
+        ref, _ = tsw.evolve_batch_auto(*args, spec, chi_start=2,
+                                       chunk_periods=2, device="cpu")
+        out, info = tsw.evolve_batch_auto(*args, spec, chi_start=2,
+                                          chunk_periods=2, device="cpu",
+                                          cap_svd_method="jacobi_core")
+        assert info["chi_pad_used"] == 4
+        for k in ref:
+            np.testing.assert_allclose(out[k], ref[k], rtol=0, atol=1e-8,
+                                       err_msg=k)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsw.evolve_batch_auto(np.zeros((1, 4)), np.ones(1),
-                              tsw._basis_indices(4, "neel"), spec,
-                              device="cpu", **{arg: 1})
+        tsw.evolve_batch_auto(*args, spec, device="cpu", **{arg: 1})
 
 
 def test_draw_disorder_batch_is_seeded_and_bounded():

@@ -44,9 +44,10 @@ def pi_pulse_gate(dtype=torch.complex64, device="cuda") -> torch.Tensor:
 
 def x_rotation_gate(theta, dtype=torch.complex64, device="cuda") -> torch.Tensor:
     """exp(-i theta/2 sigma_x), with cos/sin evaluated in the real dtype
-    of ``dtype`` (as the JAX package does in its working dtype)."""
+    of ``dtype`` (as the JAX package does in its working dtype).  ``theta``
+    a float ([2, 2]) or a tensor of angles ([..., 2, 2])."""
     th = torch.as_tensor(theta, dtype=dtype.to_real(), device=device)
-    c, s = torch.cos(th / 2), torch.sin(th / 2)
+    c, s = torch.cos(th / 2)[..., None, None], torch.sin(th / 2)[..., None, None]
     eye = torch.eye(2, dtype=dtype, device=device)
     sx = torch.as_tensor(SIGMA_X, dtype=dtype, device=device)
     return c * eye - 1j * s * sx

@@ -20,10 +20,10 @@ import torch
 from ..ops.csvd import csvd_topk
 from .mps import MPS
 
-# Saturated-steady-state SVD fast paths whose reported trunc_err carries
-# a projection leak + float32 noise floor rather than the true discarded
-# weight; chi-escalation decisions must never read error off them.  (Not
-# ported yet: csvd_topk raises for them.)
+# Saturated-steady-state SVD fast paths (ops/csvd.py) whose reported
+# trunc_err carries a projection leak + float32 noise floor rather than the
+# true discarded weight; chi-escalation decisions must never read error off
+# them (the staged evolutions replace them by 'jacobi' below the cap).
 PROJECTED_SVD_METHODS = frozenset(
     {"jacobi_proj", "jacobi_core", "jacobi_core_fast"})
 
@@ -33,7 +33,9 @@ class TruncParams(NamedTuple):
     svd_min: float = 1e-12
     trunc_cut: float = 0.0    # 0 => disabled
     renormalize: bool = True
-    svd_method: str = "auto"  # 'native' | 'jacobi' | 'auto' (ops/csvd.py)
+    # 'native' | 'jacobi' | 'jacobi_full' | 'auto' | a projected method
+    # (PROJECTED_SVD_METHODS; ops/csvd.py)
+    svd_method: str = "auto"
     jacobi_sweeps: int = 0    # 0 = dtype default (ops/jacobi_svd.py)
 
     @classmethod

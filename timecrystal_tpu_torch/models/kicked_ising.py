@@ -44,7 +44,7 @@ class FloquetGates:
     ``boundary_gate`` (if any) are ensemble axes."""
 
     bond_gates: torch.Tensor                    # [..., L-1, d, d, d, d]
-    kick: torch.Tensor                          # [d, d]
+    kick: torch.Tensor                          # [d, d] or [..., d, d]
     # periodic-BC boundary gate [..., d, d, d, d] for the SWAPPED layout
     # (left = site 0's field, right = site L-1's field); None when open
     boundary_gate: torch.Tensor | None = None
@@ -53,15 +53,18 @@ class FloquetGates:
 def make_floquet_gates(J, h_fields: torch.Tensor, tau, theta=np.pi,
                        dtype=torch.complex64, bc: str = "open") -> FloquetGates:
     """Analytic Floquet gates from the fields ``h_fields`` [..., L] (real
-    tensor; its device is the gates' device).  ``tau`` is a float or a
-    tensor over the leading axes.  Angles are computed in the fields'
-    dtype, then cast to the real dtype of ``dtype``."""
+    tensor; its device is the gates' device).  ``tau`` and ``theta`` are
+    floats or tensors over the leading axes (a tensor of kick angles gives
+    one kick per realization, [..., d, d]: the drive-strength axis).
+    Angles are computed in the fields' dtype, then cast to the real dtype
+    of ``dtype``; the kick's in the real dtype of ``dtype``.  A float theta
+    equal to pi is the exact -i sigma_x."""
     device = h_fields.device
     tau_half = (tau / 2.0 if not torch.is_tensor(tau)
                 else tau.to(h_fields.dtype) / 2.0)
     angles = G.ising_bond_phase_angles(J, h_fields, tau_half)
     bond_gates = G.phases_to_bond_gates(angles, dtype=dtype)
-    if float(theta) == float(np.pi):
+    if not torch.is_tensor(theta) and float(theta) == float(np.pi):
         kick = G.pi_pulse_gate(dtype=dtype, device=device)
     else:
         kick = G.x_rotation_gate(theta, dtype=dtype, device=device)
@@ -74,6 +77,12 @@ def make_floquet_gates(J, h_fields: torch.Tensor, tau, theta=np.pi,
                         boundary_gate=boundary)
 
 
+def _apply_kick(psi: MPS, kick: torch.Tensor) -> MPS:
+    """The kick on every site: ``kick`` [d, d] or [..., d, d] with the
+    MPS's ensemble axes."""
+    return apply_one_site_gates(psi, kick[..., None, :, :])
+
+
 def floquet_period(psi: MPS, gates: FloquetGates, tp: TruncParams):
     """One full Floquet period: Ising half-step (even bonds, then odd), the
     kick on every site, the Ising half-step again; periodic chains add the
@@ -83,7 +92,7 @@ def floquet_period(psi: MPS, gates: FloquetGates, tp: TruncParams):
     eb1 = eb2 = 0.0
     if gates.boundary_gate is not None:
         psi, eb1 = apply_boundary_gate_periodic(psi, gates.boundary_gate, tp)
-    psi = apply_one_site_gates(psi, gates.kick)
+    psi = _apply_kick(psi, gates.kick)
     psi, e3 = apply_bond_gates(psi, gates.bond_gates, 0, tp)
     psi, e4 = apply_bond_gates(psi, gates.bond_gates, 1, tp)
     if gates.boundary_gate is not None:
@@ -128,7 +137,7 @@ def floquet_period_merged(phi: MPS, gates: FloquetGates, tp: TruncParams):
     bond dimensions are those of the half-step-shifted state.  Valid only
     for diagonal bond gates."""
     full_bonds = _square_diagonal_gates(gates.bond_gates)
-    phi = apply_one_site_gates(phi, gates.kick)
+    phi = _apply_kick(phi, gates.kick)
     phi, e1 = apply_bond_gates(phi, full_bonds, 0, tp)
     phi, e2 = apply_bond_gates(phi, full_bonds, 1, tp)
     err = e1 + e2

@@ -9,11 +9,16 @@ Port of ``timecrystal_tpu/ops/csvd.py``.  SVD methods:
     panels and the V-accumulating ``jacobi_svd`` for the rest; ``csvd``
     always takes ``jacobi_svd`` (it returns U);
   * ``'jacobi_full'`` (``csvd_topk`` only): ``jacobi_svd`` for every panel;
+  * ``'jacobi_proj'``, ``'jacobi_core'``, ``'jacobi_core_fast'``
+    (``csvd_topk`` only): the projected top-k SVDs of the saturated-chi
+    steady state (``jacobi_proj`` / ``jacobi_core``, kernel 1 on k-column
+    panels or the k x k core) with the JAX package's tuned configurations;
+    an odd k or k > min(m, n) takes ``'jacobi'``, as in the JAX package;
   * ``'auto'``: ``'native'`` for CPU tensors, ``'jacobi'`` otherwise.  The
     JAX package's ``'auto'`` picks a Gram/eigh SVD on the TPU only because
     that backend has no SVD.
 
-The JAX package's other methods are not ported yet and raise
+The Gram/eigh method names are not ported yet and raise
 ``NotImplementedError`` naming the ROADMAP item: nothing reroutes silently.
 
 ``heigh`` / ``hermitian_invsqrt`` / ``cqr_tall`` (TDVP's canonical splits)
@@ -25,17 +30,21 @@ from __future__ import annotations
 
 import torch
 
-from .jacobi_svd import jacobi_sv, jacobi_svd
+from .jacobi_svd import jacobi_core, jacobi_proj, jacobi_sv, jacobi_svd
 
-_PROJECTED = "ROADMAP.md queue 1, 'jacobi_proj / jacobi_core'"
 _ALIASES = "ROADMAP.md queue 1, 'csvd and the Gram/eigh method names'"
 _NOT_PORTED = {
-    "jacobi_proj": _PROJECTED,
-    "jacobi_core": _PROJECTED,
-    "jacobi_core_fast": _PROJECTED,
     "gram_eigh": _ALIASES,
     "gram_eigh_gs": _ALIASES,
 }
+# The matmul precision of jacobi_core_fast's quintic polar stage in
+# complex64 (complex128 keeps 'highest').  The JAX package runs it as
+# single-pass bf16 on the TPU.  On the H100 cuBLAS runs complex64 matmuls on
+# TF32 tensor cores when allowed: chip_smoke.py times both modes of
+# ops.jacobi_svd.QUINTIC_PRECISIONS and gates the one named here with the
+# 50-period closed-loop steady check and the dense-spectrum orthonormality
+# defect (PERF.md).
+FAST_QUINTIC_PRECISION = "tf32"
 
 
 def _resolve(method: str, x: torch.Tensor, what: str) -> str:
@@ -50,15 +59,39 @@ def _resolve(method: str, x: torch.Tensor, what: str) -> str:
 def csvd_topk(theta: torch.Tensor, k: int, method: str = "auto",
               jacobi_sweeps: int = 0):
     """Top-k truncated SVD of theta [..., m, n]: (S [..., k], Vh [..., k, n],
-    disc [...]) with disc the discarded weight sum(S[k:]^2).
-    ``jacobi_sweeps``: sweep cap of the Jacobi methods, 0 = dtype default."""
+    disc [...]) with disc the discarded weight sum(S[k:]^2) -- for the
+    projected methods ||theta||_F^2 - sum S^2, which includes the
+    projection leak.  ``jacobi_sweeps``: sweep cap of the Jacobi methods,
+    0 = dtype default."""
     m, n = theta.shape[-2:]
     method = _resolve(method, theta, "csvd_topk")
+    sweeps = jacobi_sweeps or None
+    if (method in ("jacobi_proj", "jacobi_core", "jacobi_core_fast")
+            and (k % 2 or k > min(m, n))):
+        method = "jacobi"          # panels the projected SVDs do not take
+    if method == "jacobi_proj":
+        # the JAX package's tuned configurations: complex128 polish 6 + 6
+        # at the default tols; complex64 tol 1e-6 on both panels, polish
+        # 4 + 4
+        tuned = (dict(polish_b_iters=6, polish_iters=6)
+                 if theta.dtype == torch.complex128 else
+                 dict(tol=1e-6, tol_b=1e-6, polish_b_iters=4, polish_iters=4))
+        S, V, disc = jacobi_proj(theta, k, max_sweeps=sweeps, polish=k, **tuned)
+        return S, V.mH, disc
+    if method in ("jacobi_core", "jacobi_core_fast"):
+        # jacobi_core_fast (complex64 only): the fixed 4-iteration polish and
+        # the quintic at FAST_QUINTIC_PRECISION
+        tuned = (dict(quintic_precision=FAST_QUINTIC_PRECISION, polish_iters=4,
+                      polish_adaptive=False)
+                 if method == "jacobi_core_fast"
+                 and theta.dtype != torch.complex128 else {})
+        S, V, disc = jacobi_core(theta, k, max_sweeps=sweeps, **tuned)
+        return S, V.mH, disc
     if method == "jacobi" and m == n and n % 2 == 0:
-        S, V = jacobi_sv(theta, max_sweeps=jacobi_sweeps or None, polish=k)
+        S, V = jacobi_sv(theta, max_sweeps=sweeps, polish=k)
         Vh = V.mH
     elif method in ("jacobi", "jacobi_full"):
-        _, S, Vh = jacobi_svd(theta, n_sweeps=jacobi_sweeps or None)
+        _, S, Vh = jacobi_svd(theta, n_sweeps=sweeps)
     elif method == "native":
         _, S, Vh = torch.linalg.svd(theta, full_matrices=False)
     else:

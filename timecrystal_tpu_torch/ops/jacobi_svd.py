@@ -24,6 +24,13 @@ each launch first reads the previous one's batch-max measure and returns
 at once after the exit (``_device_sweep_loop``).  The sweeps run are added
 into ``sweep_counter(device)``.
 
+``jacobi_proj`` / ``jacobi_core`` (the saturated-chi steady leg's top-k
+SVDs) project theta onto k-column panels with matmuls and orthogonalize the
+panels -- or the k x k core -- with the same ``_sweep_loop``: on a CUDA
+tensor kernel 1 with its device exit, on a CPU tensor the twin.  Their
+matmul stages (``_poly_polar``, the Newton-Schulz polishes) are plain
+torch, as they are plain XLA in JAX.
+
 ``jacobi_svd`` has two kernel-2 variants (``_orthogonalize_v``): one matrix
 whose X and W fit in one SM's shared memory (``_resident_fits``: complex64
 up to n = 120, complex128 up to n = 84 -- TDVP's splits) runs the resident
@@ -48,6 +55,7 @@ Vh = conj(W).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -62,6 +70,9 @@ SV_SMEM_LAUNCHES = 0
 SV_CLUSTER_LAUNCHES = 0
 # jacobi_sv calls that ran the sweep loop on a CUDA tensor
 CUDA_SV_CALLS = 0
+# host reads of the adaptive Newton-Schulz polish's batch-max defect that
+# lies off the CPU (one per iteration, each a device sync)
+NS_HOST_READS = 0
 # reads of a sweep measure that lies off the CPU by jacobi_sv's host loop
 # (each one a device sync); the CUDA path makes none
 SV_HOST_READS = 0
@@ -83,6 +94,7 @@ _SCHEDULES: dict = {}
 _SWEEPS: dict = {}
 _RESIDENT_SWEEPS: dict = {}
 _CLUSTER_PLANS: dict = {}
+_PROJ_BASES: dict = {}
 
 
 def _pair_rotation(a, b, c):
@@ -618,6 +630,258 @@ def jacobi_sv_plain(theta: torch.Tensor, max_sweeps: int | None = None,
     """``jacobi_sv`` through the torch twin and the host loop on any device:
     the plain version the CUDA kernels are held against."""
     return _jacobi_sv(theta, max_sweeps, tol, polish, _plain_sweep_loop)
+
+
+def _fixed_projection_basis(n: int, k: int, dtype, device) -> torch.Tensor:
+    """Deterministic orthonormal basis Q0 [n, k] of the projected SVDs: the
+    JAX package's constant bit for bit (NumPy ``default_rng(0x7C0FFEE)``,
+    a complex Gaussian [n, k], ``np.linalg.qr``, each part rounded to the
+    working precision), cached per (n, k, dtype, device) on the device."""
+    key = (n, k, dtype, str(torch.device(device)))
+    if key not in _PROJ_BASES:
+        rng = np.random.default_rng(0x7C0FFEE)
+        Q, _ = np.linalg.qr(rng.standard_normal((n, k))
+                            + 1j * rng.standard_normal((n, k)))
+        _PROJ_BASES[key] = torch.as_tensor(Q).to(dtype=dtype, device=device)
+    return _PROJ_BASES[key]
+
+
+def _ns_polish_adaptive(V: torch.Tensor, pk: int, max_iters: int,
+                        tol: float) -> torch.Tensor:
+    """``_ns_polish`` of V's leading pk columns with the JAX while_loop's
+    exit: after each iteration whose batch-max defect (of the X it started
+    from) is below float(tol) in V's precision, or at ``max_iters``.
+
+    The defect is NULL-SAFE: max(off-diagonal |Re| + |Im| of X^H X,
+    4 |p_ii (1 - p_ii)|) -- a null column's zero diagonal would read as
+    defect 1 forever under max|X^H X - I|, and both terms vanish at the
+    fixed points (column norms 0 or 1).  The defect is read on the host
+    once per iteration (``NS_HOST_READS`` counts the reads off the CPU)."""
+    global NS_HOST_READS
+    X = V[..., :, :pk] * float(np.float32(1.0 / np.sqrt(2)))
+    eye = torch.eye(pk, dtype=V.real.dtype, device=V.device)
+    threshold = float(np.float32(tol) if V.dtype == torch.complex64 else tol)
+    for _ in range(max_iters):
+        P = X.mH @ X
+        diag = P.real.diagonal(dim1=-2, dim2=-1)
+        off = ((P.real - eye * P.real).abs() + P.imag.abs()).amax()
+        d = torch.maximum(off, (4.0 * (diag * (1.0 - diag)).abs()).amax())
+        X = X @ (1.5 * eye - 0.5 * P)
+        if d.device.type != "cpu":
+            NS_HOST_READS += 1
+        if float(d) < threshold:
+            break
+    return torch.cat([X, V[..., :, pk:]], -1)
+
+
+# Muon-class quintic p(x) = a x + b x^3 + c x^5 of _poly_polar: slope a at 0
+# (small sigmas grow ~3.4x per iteration), |p| <= ~1.09 on [0, 1.09]
+_QUINTIC_A, _QUINTIC_B, _QUINTIC_C = 3.4445, -4.7750, 2.0315
+# matmul precisions of _poly_polar's quintic stage: 'highest' (full fp32,
+# the package's setting) and 'tf32' (cuBLAS may use TF32 tensor cores)
+QUINTIC_PRECISIONS = ("highest", "tf32")
+
+
+@contextlib.contextmanager
+def _tf32_allowed():
+    """TF32 allowed in cuBLAS matmuls inside the block only (the package
+    keeps it off, ``__init__.py``)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _qmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b at the quintic stage's ``precision``."""
+    if precision == "highest":
+        return a @ b
+    if precision == "tf32":
+        with _tf32_allowed():
+            return a @ b
+    raise ValueError(f"unknown quintic precision {precision!r}; one of "
+                     f"{QUINTIC_PRECISIONS}")
+
+
+def _poly_polar(X: torch.Tensor, q_iters: int, c_iters: int,
+                q_precision: str = "highest") -> torch.Tensor:
+    """Polynomial polar orthonormalization of X [B, m, k], all matmuls:
+    W^H W ~ I on the span of X's non-null directions, exact zero singular
+    values stay zero (p(0) = 0).  The Frobenius prescale puts sigma_max
+    <= 1; ``q_iters`` quintic iterations grow the small sigmas toward 1
+    (their matmuls at ``q_precision``: they only mix within span(W)), then
+    ``c_iters`` cubic Newton-Schulz iterations, always at full precision,
+    contract the defect quadratically to the dtype floor."""
+    nrm = torch.sqrt((X.real * X.real + X.imag * X.imag).sum((-2, -1),
+                                                             keepdim=True))
+    inv = torch.where(nrm > 0, 1.0 / torch.clamp(nrm, min=1e-30),
+                      torch.zeros_like(nrm))
+    W = X * inv
+    eye = torch.eye(X.shape[-1], dtype=X.real.dtype, device=X.device)
+    for _ in range(q_iters):
+        G = _qmul(W.mH, W, q_precision)
+        G2 = _qmul(G, G, q_precision)
+        W = _qmul(W, _QUINTIC_A * eye + _QUINTIC_B * G + _QUINTIC_C * G2,
+                  q_precision)
+    for _ in range(c_iters):
+        W = W @ (1.5 * eye - 0.5 * (W.mH @ W))
+    return W
+
+
+def _flat_batch(theta: torch.Tensor, k: int, what: str):
+    """theta [..., m, n] -> (theta [B, m, n], leading shape, squeeze flag),
+    checking the projected SVDs' precondition: k even, k <= min(m, n)."""
+    squeeze = theta.dim() == 2
+    if squeeze:
+        theta = theta[None]
+    lead = theta.shape[:-2]
+    m, n = theta.shape[-2:]
+    if k % 2 or k > min(m, n):
+        raise ValueError(f"{what} needs even k <= min(m, n), got k={k} for "
+                         f"{m}x{n}")
+    return theta.reshape(-1, m, n), lead, squeeze
+
+
+def _unflat(S, V, disc, lead, squeeze):
+    S, V, disc = (S.reshape(*lead, *S.shape[1:]), V.reshape(*lead, *V.shape[1:]),
+                  disc.reshape(lead))
+    if squeeze:
+        S, V, disc = S[0], V[0], disc[0]
+    return S, V, disc
+
+
+def _discarded(theta: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """disc = ||theta||_F^2 - sum S^2, clamped at 0 (the projection leak
+    included: conservative)."""
+    disc = ((theta.real * theta.real + theta.imag * theta.imag).sum((-2, -1))
+            - (S * S).sum(-1))
+    return torch.clamp(disc, min=0.0)
+
+
+def _jacobi_proj(theta, k, max_sweeps, tol, tol_b, polish, polish_b_iters,
+                 polish_iters, loop):
+    f64 = theta.dtype == torch.complex128
+    if max_sweeps is None:
+        max_sweeps = 24 if f64 else 12
+    if tol is None:
+        tol = 1e-14 if f64 else 3e-8
+    if tol_b is None:
+        tol_b = tol
+    theta, lead, squeeze = _flat_batch(theta, k, "jacobi_proj")
+    Q0 = _fixed_projection_basis(theta.shape[-1], k, theta.dtype, theta.device)
+    T = theta @ Q0                                        # [B, m, k]
+    # rows of the sweep = the columns of T
+    _, Uhat = _cols_to_sv(_orthogonalize_columns(T.mT, max_sweeps, tol_b, loop),
+                          polish=0)
+    if polish_b_iters:
+        Uhat = _ns_polish(Uhat, k, iters=polish_b_iters)
+    Y = theta.mH @ Uhat                                   # [B, n, k]
+    S, V = _cols_to_sv(_orthogonalize_columns(Y.mT, max_sweeps, tol, loop),
+                       polish=0)
+    if polish:
+        V = _ns_polish(V, min(polish, k), iters=polish_iters)
+    return _unflat(S, V, _discarded(theta, S), lead, squeeze)
+
+
+def jacobi_proj(theta: torch.Tensor, k: int, max_sweeps: int | None = None,
+                tol: float | None = None, tol_b: float | None = None,
+                polish: int = 0, polish_b_iters: int = 12,
+                polish_iters: int = 12):
+    """Chained half-power projected top-k SVD of theta [..., m, n]:
+    (S [..., k], V [..., n, k], disc [...]), the saturated-chi steady
+    leg's panel path.
+
+      1. T = theta Q0 [m, k] (Q0 the fixed basis);
+      2. the Jacobi sweep loop on T's columns (tol_b) -> U-hat, normalized
+         and NS-polished (``polish_b_iters``);
+      3. Y = theta^H U-hat [n, k];
+      4. the sweep loop on Y's columns (tol): S = column norms, V = the
+         normalized columns, polished (``polish``, ``polish_iters``).
+
+    disc = ||theta||_F^2 - sum S^2, clamped at 0.  Needs k even and
+    k <= min(m, n).  Defaults as ``jacobi_sv`` (12 sweeps / tol 3e-8 for
+    complex64, 24 / 1e-14 for complex128).  A CUDA tensor runs kernel 1
+    (``_sweep_loop``), a CPU tensor the twin."""
+    return _jacobi_proj(theta, k, max_sweeps, tol, tol_b, polish,
+                        polish_b_iters, polish_iters, _sweep_loop)
+
+
+def jacobi_proj_plain(theta: torch.Tensor, k: int, max_sweeps: int | None = None,
+                      tol: float | None = None, tol_b: float | None = None,
+                      polish: int = 0, polish_b_iters: int = 12,
+                      polish_iters: int = 12):
+    """``jacobi_proj`` through the torch twin and the host loop on any
+    device: the plain version kernel 1 is held against."""
+    return _jacobi_proj(theta, k, max_sweeps, tol, tol_b, polish,
+                        polish_b_iters, polish_iters, _plain_sweep_loop)
+
+
+def _jacobi_core(theta, k, q_iters, c_iters, max_sweeps, tol, polish_iters,
+                 quintic_precision, polish_adaptive, loop):
+    f64 = theta.dtype == torch.complex128
+    if q_iters is None:
+        q_iters = 16 if f64 else 10
+    if c_iters is None:
+        c_iters = 8 if f64 else 4
+    if max_sweeps is None:
+        max_sweeps = 24 if f64 else 12
+    if tol is None:
+        tol = 1e-14 if f64 else 1e-6
+    if quintic_precision is None:
+        quintic_precision = "highest"
+    theta, lead, squeeze = _flat_batch(theta, k, "jacobi_core")
+    Q0 = _fixed_projection_basis(theta.shape[-1], k, theta.dtype, theta.device)
+    W = _poly_polar(theta @ Q0, q_iters, c_iters, quintic_precision)  # [B, m, k]
+    Z = _poly_polar(theta.mH @ W, q_iters, c_iters, quintic_precision)
+    K = W.mH @ (theta @ Z)                                # [B, k, k]
+    # the sweep runs on the columns of K^H: its rows are conj(K)
+    S, Vk = _cols_to_sv(_orthogonalize_columns(K.conj(), max_sweeps, tol, loop),
+                        polish=0)
+    V = Z @ Vk                                            # [B, n, k]
+    if polish_iters and polish_adaptive:
+        V = _ns_polish_adaptive(V, k, polish_iters, 1e-12 if f64 else 5e-6)
+    elif polish_iters:
+        V = _ns_polish(V, k, iters=polish_iters)
+    return _unflat(S, V, _discarded(theta, S), lead, squeeze)
+
+
+def jacobi_core(theta: torch.Tensor, k: int, q_iters: int | None = None,
+                c_iters: int | None = None, max_sweeps: int | None = None,
+                tol: float | None = None, polish_iters: int = 12,
+                quintic_precision: str | None = None,
+                polish_adaptive: bool = True):
+    """Core-matrix projected top-k SVD of theta [..., m, n]: (S [..., k],
+    V [..., n, k], disc [...]), the saturated-chi steady leg's fastest path.
+
+      1. W = polar(theta Q0) [m, k] (``_poly_polar``: matmuls only);
+      2. Z = polar(theta^H W) [n, k];
+      3. K = W^H theta Z [k, k] (sigma-weighted: no Gram squaring);
+      4. the Jacobi sweep loop on the columns of K^H -> S, Vk;
+      5. V = Z Vk, then the NS polish: adaptive (``_ns_polish_adaptive``,
+         the default: the orthonormal-V contract holds for every input) or
+         fixed ``polish_iters``.
+
+    Defaults: q_iters 10 / 16, c_iters 4 / 8, 12 / 24 sweeps, tol 1e-6 /
+    1e-14 (complex64 / complex128), ``quintic_precision='highest'``
+    (``QUINTIC_PRECISIONS``).  disc as ``jacobi_proj``'s.  A CUDA tensor
+    runs kernel 1 on the core, a CPU tensor the twin."""
+    return _jacobi_core(theta, k, q_iters, c_iters, max_sweeps, tol,
+                        polish_iters, quintic_precision, polish_adaptive,
+                        _sweep_loop)
+
+
+def jacobi_core_plain(theta: torch.Tensor, k: int, q_iters: int | None = None,
+                      c_iters: int | None = None, max_sweeps: int | None = None,
+                      tol: float | None = None, polish_iters: int = 12,
+                      quintic_precision: str | None = None,
+                      polish_adaptive: bool = True):
+    """``jacobi_core`` through the torch twin and the host loop on any
+    device: the plain version kernel 1 is held against."""
+    return _jacobi_core(theta, k, q_iters, c_iters, max_sweeps, tol,
+                        polish_iters, quintic_precision, polish_adaptive,
+                        _plain_sweep_loop)
 
 
 def _orthogonalize_columns_v(X: torch.Tensor, max_sweeps: int, tol: float,

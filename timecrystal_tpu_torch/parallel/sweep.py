@@ -1,9 +1,12 @@
-"""Batched disorder ensembles: the chi-staged ensemble window.
+"""Batched disorder ensembles and phase-diagram grids.
 
-Port of ``evolve_batch_auto`` from ``timecrystal_tpu/parallel/sweep.py``.
-The JAX version ``vmap``s whole evolutions over the realization axis; here
-that axis R is the MPS's leading batch axis, and ``core.truncate`` folds it
-into the bond axis, so one SVD call takes R * n_bonds matrices.
+Port of ``timecrystal_tpu/parallel/sweep.py``: the fixed-chi ensemble
+(``evolve_batch``, ``disorder_ensemble``, ``phase_grid_batch``,
+``ensemble_a2t``) and the chi-staged one (``evolve_batch_auto``).  The JAX
+version ``vmap``s whole evolutions over the realization axis; here that
+axis R is the MPS's leading batch axis, and ``core.truncate`` folds it into
+the bond axis, so one SVD call takes R * n_bonds matrices (1800 on the
+phase diagram's 120-point grid at L=16).
 """
 
 from __future__ import annotations
@@ -15,11 +18,13 @@ import numpy as np
 import torch
 
 from ..core.mps import pad_mps, product_state
-from ..core.observables import add_derived_magnetization
+from ..core.observables import (add_derived_magnetization,
+                                extract_subharmonic_amplitude)
 from ..core.truncate import PROJECTED_SVD_METHODS, TruncParams
 from ..dynamics.tebd import (_next_chi, _stage_decision, _stage_err_tol,
                              evolve_floquet_scan, to_host)
-from ..models.kicked_ising import make_floquet_gates
+from ..models.kicked_ising import draw_disorder_batch, make_floquet_gates
+from ..ops.fft import batched_subharmonic_amplitude
 
 
 class SweepSpec(NamedTuple):
@@ -45,16 +50,103 @@ def _basis_indices(L: int, state_type: str) -> np.ndarray:
     raise ValueError(f"Unknown state type for sweeps: {state_type}")
 
 
+def _refuse_unported(**options) -> None:
+    """Raise NotImplementedError for an option of the JAX package's
+    ensembles that is not ported yet, naming its ROADMAP.md item."""
+    items = {"checkpoint_dir": "Utilities", "mesh": "Scale-out",
+             "correlation_site": "Observables",
+             "two_time_anchor": "The rest of tebd.py"}
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md "
+                                      f"queue 1, '{items[name]}')")
+
+
+# the per-period traces of evolve_floquet_scan that the ensembles keep
+_CHUNK_KEYS = ("sz_sites", "loschmidt_echo", "entropies", "max_chi",
+               "trunc_err")
+
+
+def _with_initial_row(cat: dict, basis: np.ndarray) -> dict:
+    """The ensemble traces [R, n_periods+1, ...] from the per-period host
+    traces ``cat`` [R, n_periods, ...] (``_CHUNK_KEYS``): the t=0 row of
+    the product state ``basis`` prepended (sz = 1 - 2 basis, LE and max_chi
+    1, entropy and trunc_err 0), the mid-chain entropy kept, and the
+    magnetizations derived."""
+    R, _, L = cat["sz_sites"].shape
+    sz0 = np.broadcast_to((1.0 - 2.0 * basis).astype(cat["sz_sites"].dtype),
+                          (R, L))
+
+    def first(k, value):
+        return np.concatenate([np.full((R, 1), value, cat[k].dtype), cat[k]],
+                              axis=1)
+
+    traces = {
+        "sz_sites": np.concatenate([sz0[:, None, :], cat["sz_sites"]], axis=1),
+        "loschmidt_echo": first("loschmidt_echo", 1),
+        "max_chi": first("max_chi", 1),
+        "entropy_mid": np.concatenate(
+            [np.zeros((R, 1), cat["entropies"].dtype),
+             cat["entropies"][:, :, L // 2]], axis=1),
+        "trunc_err": first("trunc_err", 0),
+    }
+    return add_derived_magnetization(traces, L)
+
+
 def _stage_tp(tp: TruncParams, device: torch.device) -> TruncParams:
-    """Per-stage svd_method of the staged evolution: 'auto' is pinned to the
-    Jacobi kernel on a CUDA device.  The escalation criteria read
+    """svd_method of the batched evolutions: 'auto' is pinned to the Jacobi
+    kernel on a CUDA device.  The staged escalation criteria read
     truncation error and significant-rank occupancy off the SVD output, so
     the SVD must have the Jacobi noise floor (junk sigmas of a noisier SVD
     force spurious escalation).  On the CPU 'auto' stays (-> 'native'),
-    as in the JAX package."""
+    as in the JAX package.  The fixed-chi ``evolve_batch`` takes the same
+    rule: the JAX package's batch-size routing there (``_resolve_svd_method``)
+    guards the TPU worker's Gram/eigh faults and has no counterpart here."""
     if tp.svd_method != "auto" or torch.device(device).type == "cpu":
         return tp
     return tp._replace(svd_method="jacobi")
+
+
+def _working_dtypes(spec: SweepSpec):
+    cdtype = torch.complex64 if spec.dtype == "float32" else torch.complex128
+    return cdtype, cdtype.to_real()
+
+
+def evolve_batch(h_fields, taus, basis_indices, spec: SweepSpec,
+                 correlation_site: int | None = None,
+                 two_time_anchor: int | None = None, thetas=None,
+                 device="cuda") -> dict:
+    """Fixed-chi Floquet evolution of a batch of realizations (the phase
+    diagram's path): every realization padded at ``spec.chi`` for all
+    ``spec.n_periods`` periods, in ``spec.frame``.
+
+    ``h_fields`` [R, L], ``taus`` [R] and ``thetas`` [R] (numpy or
+    tensors; ``thetas`` optional) are cast to the spec's real dtype on
+    ``device``.  ``thetas`` gives each realization its own kick angle (the
+    drive-strength axis, pulse imperfection eps = 1 - theta/pi) and
+    overrides ``spec.theta``.  svd_method 'auto' is 'jacobi' on a CUDA
+    device and 'native' on the CPU (``_stage_tp``).
+
+    Returns host numpy traces [R, n_periods+1, ...] with the t=0 row:
+    sz_sites, loschmidt_echo, max_chi, entropy_mid, trunc_err,
+    magnetization, staggered_magnetization."""
+    _refuse_unported(correlation_site=correlation_site,
+                     two_time_anchor=two_time_anchor)
+    device = torch.device(device)
+    cdtype, rdtype = _working_dtypes(spec)
+    h = torch.as_tensor(h_fields, dtype=rdtype, device=device)
+    R, L = h.shape
+    basis = np.asarray(basis_indices)
+    theta = (spec.theta if thetas is None
+             else torch.as_tensor(thetas, dtype=rdtype, device=device))
+    gates = make_floquet_gates(
+        spec.J, h, torch.as_tensor(taus, dtype=rdtype, device=device),
+        theta=theta, dtype=cdtype)
+    psi0 = product_state(np.broadcast_to(basis, (R, L)), chi=spec.chi,
+                         dtype=cdtype, device=device)
+    _, tr = evolve_floquet_scan(psi0, gates, spec.n_periods,
+                                _stage_tp(spec.tp, device), frame=spec.frame)
+    return _with_initial_row(to_host({k: tr[k] for k in _CHUNK_KEYS}), basis)
 
 
 def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
@@ -72,6 +164,11 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
     next ladder chi, and at 15/16 significant occupancy the schedule grows
     ahead without a re-run (dynamics.tebd._stage_decision).
 
+    ``cap_svd_method``: the svd_method of chunks AT the ladder cap, where
+    truncation error no longer drives escalation (a projected method,
+    ``core.truncate.PROJECTED_SVD_METHODS``: the saturated steady leg).
+    Below the cap a projected method is replaced by 'jacobi'.
+
     ``h_fields`` [R, L] and ``taus`` [R] (numpy or tensors) are cast to the
     spec's real dtype on ``device``.  Returns (traces, info): host numpy
     traces [R, n_periods+1, ...] (t=0 row prepended) and info with
@@ -82,20 +179,13 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
     routes to the Gram/eigh SVD there; this port sends every even n to the
     Jacobi kernel, so it has no floor.
     """
-    for name, value, item in (
-            ("checkpoint_dir", checkpoint_dir, "Utilities"),
-            ("mesh", mesh, "Scale-out"),
-            ("cap_svd_method", cap_svd_method, "jacobi_proj / jacobi_core"),
-            ("correlation_site", correlation_site, "Observables")):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet "
-                                      f"(ROADMAP.md queue 1, '{item}')")
+    _refuse_unported(checkpoint_dir=checkpoint_dir, mesh=mesh,
+                     correlation_site=correlation_site)
     device = torch.device(device)
-    cdtype = torch.complex64 if spec.dtype == "float32" else torch.complex128
-    rdtype = cdtype.to_real()
+    cdtype, rdtype = _working_dtypes(spec)
     err_tol = _stage_err_tol(cdtype, spec.tp.svd_min, spec.L - 1)
-    h = torch.as_tensor(np.asarray(h_fields), dtype=rdtype, device=device)
-    taus_t = torch.as_tensor(np.asarray(taus), dtype=rdtype, device=device)
+    h = torch.as_tensor(h_fields, dtype=rdtype, device=device)
+    taus_t = torch.as_tensor(taus, dtype=rdtype, device=device)
     R, L = h.shape
     basis = np.asarray(basis_indices)
     cap = min(spec.chi, spec.tp.chi_max) if spec.tp.chi_max else spec.chi
@@ -117,11 +207,14 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
     chunks: list = []
     while p_done < n_periods:
         n = min(chunk_periods, n_periods - p_done)
-        tp = _stage_tp(spec.tp, device)
-        if chi < cap and tp.svd_method in PROJECTED_SVD_METHODS:
-            # below the cap escalation reads trunc_err, which projected
-            # methods report at the noise floor
-            tp = tp._replace(svd_method="jacobi")
+        if cap_svd_method and chi >= cap:
+            tp = spec.tp._replace(svd_method=cap_svd_method)
+        else:
+            tp = _stage_tp(spec.tp, device)
+            if chi < cap and tp.svd_method in PROJECTED_SVD_METHODS:
+                # below the cap escalation reads trunc_err, which projected
+                # methods report at the noise floor
+                tp = tp._replace(svd_method="jacobi")
         psi_next, tr = evolve_floquet_scan(psi, gates, n, tp, ref_state=psi0,
                                            frame=spec.frame)
         tr = to_host(tr)
@@ -151,26 +244,9 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
         p_done += n
 
     wall_time = time.perf_counter() - start
-    keys = ("sz_sites", "loschmidt_echo", "entropies", "max_chi", "trunc_err")
     cat = {k: np.concatenate([c[k] for c in chunks], axis=1)[:, :n_periods]
-           for k in keys}
-    sz0 = np.broadcast_to((1.0 - 2.0 * basis).astype(cat["sz_sites"].dtype),
-                          (R, L))
-    traces = {
-        "sz_sites": np.concatenate([sz0[:, None, :], cat["sz_sites"]], axis=1),
-        "loschmidt_echo": np.concatenate(
-            [np.ones((R, 1), cat["loschmidt_echo"].dtype),
-             cat["loschmidt_echo"]], axis=1),
-        "max_chi": np.concatenate(
-            [np.ones((R, 1), cat["max_chi"].dtype), cat["max_chi"]], axis=1),
-        "entropy_mid": np.concatenate(
-            [np.zeros((R, 1), cat["entropies"].dtype),
-             cat["entropies"][:, :, L // 2]], axis=1),
-        "trunc_err": np.concatenate(
-            [np.zeros((R, 1), cat["trunc_err"].dtype), cat["trunc_err"]],
-            axis=1),
-    }
-    add_derived_magnetization(traces, L)
+           for k in _CHUNK_KEYS}
+    traces = _with_initial_row(cat, basis)
     info = {
         "wall_time": wall_time,
         "chain_periods_per_second": (R * n_periods / wall_time
@@ -180,3 +256,72 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
         "n_rerun_periods": n_rerun,
     }
     return traces, info
+
+
+def disorder_ensemble(generator: torch.Generator, n_realizations: int,
+                      spec: SweepSpec, h_disorder: float, tau: float,
+                      state_type: str = "neel", mesh=None, staged: bool = False,
+                      chi_start: int = 32, chunk_periods: int = 5,
+                      cap_svd_method: str | None = None,
+                      correlation_site: int | None = None,
+                      device="cuda") -> dict:
+    """Batched disorder ensemble: fields [R, L] ~ U[-h, h] drawn from
+    ``generator`` (``draw_disorder_batch``; the JAX package draws them from
+    a JAX key, so the two packages' fields differ), one ``tau`` for all,
+    evolved by ``evolve_batch`` or, with ``staged=True``, by the chi-staged
+    ``evolve_batch_auto`` (``chi_start``, ``chunk_periods``,
+    ``cap_svd_method``).  Returns the traces dict of either."""
+    _refuse_unported(mesh=mesh, correlation_site=correlation_site)
+    h = draw_disorder_batch(generator, n_realizations, spec.L, h_disorder)
+    taus = np.full(n_realizations, tau)
+    basis = _basis_indices(spec.L, state_type)
+    if staged:
+        traces, _ = evolve_batch_auto(h, taus, basis, spec,
+                                      chi_start=chi_start,
+                                      chunk_periods=chunk_periods,
+                                      cap_svd_method=cap_svd_method,
+                                      device=device)
+        return traces
+    return evolve_batch(h, taus, basis, spec, device=device)
+
+
+def phase_grid_batch(h_over_J_values, T_J_values, spec: SweepSpec,
+                     disorder_seed: int = 42):
+    """Flatten a (h/J x T.J) grid into the batch (h_fields [P, L], taus
+    [P], hs [P], Ts [P]) as host numpy, P = len(h) * len(T), h outer.
+
+    The reference's per-point disorder exactly: np.random.seed(seed) then
+    one MT19937 draw of a unit pattern, so every point's fields are
+    h * J * pattern; tau = T.J / (2 J)."""
+    np.random.seed(disorder_seed)
+    base = np.random.uniform(-1.0, 1.0, spec.L)
+    hs, Ts = np.meshgrid(np.asarray(h_over_J_values), np.asarray(T_J_values),
+                         indexing="ij")
+    hs, Ts = hs.ravel(), Ts.ravel()
+    return hs[:, None] * spec.J * base[None, :], Ts / (2.0 * spec.J), hs, Ts
+
+
+def ensemble_a2t(traces: dict, taus,
+                 series_key: str = "staggered_magnetization",
+                 device="cuda") -> np.ndarray:
+    """A2T of every realization's ``traces[series_key]`` [R, n+1] (sampled
+    every period 2 tau from t=0), for the whole batch in one device call
+    (``ops.fft.batched_subharmonic_amplitude``).  Realizations whose trace
+    is not finite come back NaN from the batch and are recomputed with the
+    host recipe (``core.observables.extract_subharmonic_amplitude``), which
+    drops the invalid samples.  Returns host numpy [R]."""
+    series = torch.as_tensor(traces[series_key], device=device)
+    R, n1 = series.shape
+    taus_t = torch.as_tensor(taus, dtype=series.dtype, device=device)
+    times = (torch.arange(n1, dtype=series.dtype, device=device)[None, :]
+             * (2.0 * taus_t)[:, None])
+    a2t = batched_subharmonic_amplitude(times, series, 2.0 * taus_t)
+    a2t = a2t.cpu().numpy().copy()
+    bad = np.flatnonzero(np.isnan(a2t))
+    if bad.size:
+        t_np, s_np = times.cpu().numpy(), series.cpu().numpy()
+        tau_np = taus_t.cpu().numpy()
+        for r in bad:
+            a2t[r] = extract_subharmonic_amplitude(t_np[r], s_np[r],
+                                                   2.0 * float(tau_np[r]))
+    return a2t
