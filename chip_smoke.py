@@ -45,7 +45,13 @@ tests/exact_reference.py.  Phases:
      chi_pad=32, 80 periods) and one 40-point chunk of the drive-strength
      diagram (a kick per realization, chi_pad=48), each with A2T against
      the host recipe;
-  9. the long-range TDVP path against the dense oracle (L=10, chi=32, 10
+  9. the application layer (analysis/, config.txt): the phase diagram's
+     120 points through sweep_phase_grid and its scoring, the drive
+     diagram's default 12 x 10 grid through sweep_drive_grid, the
+     correlation trace of evolve_batch, and Figures A-D's four simulations
+     at the reference's sizes, each against complex128 on the host CPU
+     (matplotlib is not needed: nothing is rendered);
+ 10. the long-range TDVP path against the dense oracle (L=10, chi=32, 10
      periods, theta = pi and the entangling 0.92 pi, the latter also against
      a complex128 CPU run of the same TDVP), then at the interaction-range
      diagram's widths (L=12, chi=48, 12 periods, alpha in {1.5, None};
@@ -1655,20 +1661,61 @@ def phase_steady_chi512(psi, gates, tp):
     return c
 
 
-def _grid_reference(h_fields, taus, spec, thetas, idx):
+def _grid_reference(h_fields, taus, spec, thetas, idx, correlation_site=None,
+                    dtype="float64"):
     """(traces, seconds) of the grid points ``idx`` through evolve_batch in
-    complex128 on the host CPU with LAPACK's SVD ('native'): a run that
-    shares no kernel, precision or device with the card's."""
+    complex128 (``dtype``) on the host CPU with LAPACK's SVD ('native'): a
+    run that shares no kernel, precision or device with the card's."""
     from timecrystal_tpu_torch.parallel.sweep import _basis_indices, evolve_batch
 
     t0 = time.perf_counter()
     ref = evolve_batch(
         np.asarray(h_fields)[idx], np.asarray(taus)[idx],
         _basis_indices(spec.L, "neel"),
-        spec._replace(dtype="float64", tp=spec.tp._replace(svd_method="native")),
+        spec._replace(dtype=dtype, tp=spec.tp._replace(svd_method="native")),
         thetas=None if thetas is None else np.asarray(thetas)[idx],
-        device="cpu")
+        correlation_site=correlation_site, device="cpu")
     return ref, time.perf_counter() - t0
+
+
+def _reference_check(tag, traces, h_fields, taus, spec, thetas, idx,
+                     correlation_site=None, gate_truncated=True):
+    """The card's ``traces`` of the grid points ``idx`` against the same
+    points in complex128 on the host CPU (``_grid_reference``): max |d| of
+    sz and LE (and zz_corr with ``correlation_site``) before the reference
+    first truncates and over all rows, checked against GRID_REFERENCE_TOL
+    (the all-rows bound only with ``gate_truncated``).  Returns the
+    reference."""
+    ref, dt_ref = _grid_reference(h_fields, taus, spec, thetas, idx,
+                                  correlation_site)
+    keys = ("sz_sites", "loschmidt_echo") + (
+        () if correlation_site is None else ("zz_corr",))
+    exact = np.cumsum(ref["trunc_err"] > GRID_EXACT_TRUNC, axis=1) == 0
+    diff = {k: np.abs(traces[k][idx] - ref[k]) for k in keys}
+    d_ex = {k: float(np.max(v[exact])) for k, v in diff.items()}
+    d_all = {k: float(np.max(v)) for k, v in diff.items()}
+    tol = GRID_REFERENCE_TOL
+    names = {"sz_sites": "sz", "loschmidt_echo": "LE", "zz_corr": "zz_corr"}
+    ex = ", ".join(f"|d {names[k]}| {v:.2e}" for k, v in d_ex.items())
+    al = ", ".join(f"|d {names[k]}| {v:.2e}" for k, v in d_all.items())
+    per_point = np.max([v.reshape(len(idx), -1).max(1) for v in diff.values()], 0)
+    all_bound = (f"< {tol['truncated']:.0e}" if gate_truncated else
+                 f"not bounded; per point {[f'{x:.2e}' for x in per_point]}")
+    print(f"[{tag}] points {idx.tolist()} against complex128 LAPACK on the "
+          f"host CPU ({dt_ref:.1f} s): before the reference truncates "
+          f"(> {GRID_EXACT_TRUNC:.0e} a bond; {exact.sum(1).tolist()} of "
+          f"{exact.shape[1]} rows) max {ex} (< {tol['exact']:.0e}); all rows "
+          f"max {al} ({all_bound}); max trunc_err "
+          f"{float(traces['trunc_err'][idx].max()):.2e} (card), "
+          f"{float(ref['trunc_err'].max()):.2e} (host), max_chi "
+          f"{int(traces['max_chi'][idx].max())} / {int(ref['max_chi'].max())}",
+          flush=True)
+    _check(bool(exact[:, :5].all()), f"{tag}: the reference truncates in the "
+           f"first 4 periods")
+    _check(max(d_ex.values()) < tol["exact"] and
+           (not gate_truncated or max(d_all.values()) < tol["truncated"]),
+           f"{tag} differs from the complex128 host run: {d_ex}, {d_all}")
+    return ref
 
 
 def _grid_run(tag, h_fields, taus, spec, thetas=None):
@@ -1711,29 +1758,7 @@ def _grid_run(tag, h_fields, taus, spec, thetas=None):
            f"{tag} did not run kernel 1's shared-memory variant: {c}")
     _check(a2t_err < 1e-5, f"{tag} A2T differs from the host recipe: {a2t_err}")
     idx = np.linspace(0, P - 1, GRID["n_reference"]).round().astype(int)
-    ref, dt_ref = _grid_reference(h_fields, taus, spec, thetas, idx)
-    exact = np.cumsum(ref["trunc_err"] > GRID_EXACT_TRUNC, axis=1) == 0
-    diff = {k: np.abs(traces[k][idx] - ref[k]) for k in ("sz_sites",
-                                                          "loschmidt_echo")}
-    d_ex = {k: float(np.max(v[exact])) for k, v in diff.items()}
-    d_all = {k: float(np.max(v)) for k, v in diff.items()}
-    tol = GRID_REFERENCE_TOL
-    print(f"[{tag}] points {idx.tolist()} against complex128 LAPACK on the "
-          f"host CPU ({dt_ref:.1f} s): before the reference truncates "
-          f"(> {GRID_EXACT_TRUNC:.0e} a bond; {exact.sum(1).tolist()} of "
-          f"{exact.shape[1]} rows) max |d sz| {d_ex['sz_sites']:.2e}, |d LE| "
-          f"{d_ex['loschmidt_echo']:.2e} (< {tol['exact']:.0e}); all rows max "
-          f"|d sz| {d_all['sz_sites']:.2e}, |d LE| {d_all['loschmidt_echo']:.2e} "
-          f"(< {tol['truncated']:.0e}); max trunc_err "
-          f"{float(traces['trunc_err'][idx].max()):.2e} (card), "
-          f"{float(ref['trunc_err'].max()):.2e} (host), max_chi "
-          f"{int(traces['max_chi'][idx].max())} / {int(ref['max_chi'].max())}",
-          flush=True)
-    _check(bool(exact[:, :5].all()), f"{tag}: the reference truncates in the "
-           f"first 4 periods")
-    _check(max(d_ex.values()) < tol["exact"] and
-           max(d_all.values()) < tol["truncated"],
-           f"{tag} differs from the complex128 host run: {d_ex}, {d_all}")
+    ref = _reference_check(tag, traces, h_fields, taus, spec, thetas, idx)
     n = 2 * spec.chi
     per_sm = J.smem_occupancy(n, n, torch.complex64, "cuda")
     even = P * len(range(0, spec.L - 1, 2))
@@ -1759,13 +1784,14 @@ def _grid_run(tag, h_fields, taus, spec, thetas=None):
           f"{spec.n_periods} of the run above): "
           f"{_profile_line(wall, ms, dt * n / spec.n_periods * 1e3)}; {n_sync} "
           f"CUDA runtime synchronize calls", flush=True)
-    return c
+    return c, dict(idx=idx, traces=ref)
 
 
 def phase_phase_grid():
     """The phase diagram's grid: phase_grid_batch + evolve_batch at
     GRID_HARDCODED (L=16, chi_pad=32, 80 periods, theta=pi, chi_max=24),
-    12 h x 10 T, then ensemble_a2t on the staggered magnetization."""
+    12 h x 10 T, then ensemble_a2t on the staggered magnetization.  Returns
+    kernel 1's counts and the complex128 host reference of its points."""
     from timecrystal_tpu_torch.core.truncate import TruncParams
     from timecrystal_tpu_torch.parallel.sweep import SweepSpec, phase_grid_batch
 
@@ -1798,7 +1824,280 @@ def phase_drive_grid():
                                               np.linspace(*d["h"]), indexing="ij"))
     return _grid_run("drive-grid", hs[:, None] * base[None, :],
                      np.full(len(eps), d["T_drive"] / 2.0), spec,
-                     thetas=np.pi * (1.0 - eps))
+                     thetas=np.pi * (1.0 - eps))[0]
+
+
+# the application layer (analysis/) at the reference's sizes with
+# config.txt: Figures A-D's traces against the same simulation in
+# complex128 on the host CPU (rank-1 theta = pi dynamics: float32 rounding
+# only); the phase diagram's scores on the card against the complex128
+# host points of [phase-grid]; the drive diagram's default 12 x 10 grid
+FIGURE_TOL = 1e-4
+SCORE_TOL = 1e-3
+FIGURE_SIMS = (("A", "simulate_perfect_dtc", 64), ("B", "simulate_disordered_dtc", 64),
+               ("C", "simulate_dephasing_dtc", 64), ("D", "simulate_multi_site_dtc", 16))
+DRIVE_DIAGRAM = dict(eps=(0.0, 0.5, 12), h=(0.0, 0.8, 10))
+# the drive diagram's reference points after truncation: their traces are
+# not bounded (truncated entangling dynamics decorrelates every float32 run
+# from complex128, in both packages: PERF.md), the diagram's outputs are: A2T
+# and the subharmonic weight to DRIVE_SCORE_TOL where complex128 finds a DTC
+# (weight >= DTC_WEIGHT); where it finds none, the card's weight must be
+# below DTC_WEIGHT too (there A2T, a ratio to the largest bin of a
+# decorrelated trace, is rounding-dependent: 0.105 against 0.360 measured)
+DTC_WEIGHT, DRIVE_SCORE_TOL = 0.9, 1e-2
+
+
+def _config_params():
+    from timecrystal_tpu_torch.utils.config import read_parameters
+
+    return read_parameters(str(REPO / "config.txt"))
+
+
+def phase_figures():
+    """Figures A-D's simulations (analysis/figures.py) on the card at the
+    reference's sizes (A, B, C: L=64; D: L=16; 200 periods; chi cap
+    CHI_MAX=256 of config.txt), each against the same function in
+    complex128 on the host CPU; the peak of Figure A's spectrum at w/2."""
+    import torch
+
+    from timecrystal_tpu_torch.analysis import figures as F
+    from timecrystal_tpu_torch.core.observables import \
+        calculate_fourier_spectrum
+
+    params = _config_params()
+    infos = []
+    orig = F.evolve_floquet_auto
+
+    def recording(*args, **kwargs):          # keeps each run's info dict
+        out = orig(*args, **kwargs)
+        infos.append(out[2])
+        return out
+
+    total = {"smem": 0, "cluster": 0}
+    F.evolve_floquet_auto = recording
+    try:
+        for key, name, L in FIGURE_SIMS:
+            fn = getattr(F, name)
+            _reset_kernel1_counts()          # this figure's counts start here
+            out, dt = _timed(lambda: fn(params, device="cuda"))
+            c, info = _kernel1_counts(), infos[-1]
+            t0 = time.perf_counter()
+            host = fn(params, device="cpu", dtype=torch.complex128)
+            dt_host, host_info = time.perf_counter() - t0, infos[-1]
+            series = out[1:] if key != "D" else out[1]
+            host_series = host[1:] if key != "D" else host[1]
+            err = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+                      for a, b in zip(series, host_series))
+            n = len(out[0]) - 1
+            _check(out[0] == host[0] and n == 200, f"[figures] {key} times")
+            _check(all(np.all(np.isfinite(a)) for a in series),
+                   f"[figures] {key} non-finite")
+            _check(c["smem"] + c["cluster"] > 0 and c["sweeps"] > 0,
+                   f"[figures] {key} ran no kernel-1 sweep: {c}")
+            _check(err < FIGURE_TOL, f"[figures] {key} differs from complex128: {err}")
+            for v in total:
+                total[v] += c[v]
+            print(f"[figures] {key} ({name}, L={L}, {n} periods, chi cap "
+                  f"{params['CHI_MAX']}): {dt:.2f} s, {n / dt:.1f} periods/s; chi "
+                  f"padded {info['chi_pad_used']} ({len(info['chi_escalations'])} "
+                  f"escalations), max_chi {max(info['bond_dimensions'])} (Schmidt "
+                  f"values > 1e-14; {max(host_info['bond_dimensions'])} in "
+                  f"complex128); kernel 1: {c['calls']} SVD "
+                  f"calls, {c['sweeps']} sweeps in {c['launches']} launches "
+                  f"({c['smem']} smem, {c['cluster']} cluster); max |d| of the "
+                  f"{len(series)} traces against complex128 on the host CPU "
+                  f"({dt_host:.1f} s) {err:.2e} (< {FIGURE_TOL:.0e})", flush=True)
+            if key == "A":
+                f, pw = calculate_fourier_spectrum(np.asarray(out[0]),
+                                                   np.asarray(out[1]), 4.0)
+                peak = float(f[np.argmax(pw)])
+                _check(abs(peak - 0.5) <= 1.0 / n,
+                       f"[figures] A's spectral peak at {peak}, not w/2")
+                print(f"[figures] A: the spectrum of the staggered "
+                      f"magnetization peaks at w/w_drive = {peak:.4f} (w/2 to "
+                      f"one bin, 1/{n})", flush=True)
+    finally:
+        F.evolve_floquet_auto = orig
+    return total
+
+
+def phase_phase_diagram(grid_ref):
+    """The phase diagram's 120 points through sweep_phase_grid (evolution
+    and scoring, analysis/phase_diagram.py) with config.txt; the records
+    against detection.score_phase_point on their traces, and the four
+    complex128 host points of [phase-grid] scored against the card's."""
+    from timecrystal_tpu_torch.analysis import phase_diagram as PD
+    from timecrystal_tpu_torch.analysis.detection import (score_grid,
+                                                          score_phase_point)
+
+    params, hc = _config_params(), PD.GRID_HARDCODED
+    h_values = np.linspace(*hc["h_range"], hc["n_points"][0])
+    T_values = np.linspace(*hc["T_range"], hc["n_points"][1])
+    _reset_kernel1_counts()                  # this path's counts start here
+    res, dt = _timed(lambda: PD.sweep_phase_grid(h_values, T_values, params,
+                                                 device="cuda"))
+    c = _kernel1_counts()
+    recs, tr = res["records"], res["traces"]
+    P, n1 = len(recs), tr["loschmidt_echo"].shape[1]
+    periods = res["Ts"] / float(params.get("J", 1.0))      # 2 tau
+    times = np.arange(n1)[None] * periods[:, None]
+    host = [score_phase_point(tr["loschmidt_echo"][g], times[g], tr["max_chi"][g],
+                              res["hs"][g], res["Ts"][g], periods[g])
+            for g in range(P)]
+    d_host = max(abs(r["A2T"] - h["A2T"]) for r, h in zip(recs, host))
+    idx, ref = grid_ref["idx"], grid_ref["traces"]
+    ref_recs = score_grid(ref, times[idx], res["hs"][idx], res["Ts"][idx],
+                          periods[idx])
+    # the stringent LE score and A2T, which also carries the entanglement
+    # penalty of avg max_chi: it counts Schmidt values above 1e-14, so it
+    # reads the SVD's noise floor (float32 LAPACK leaves junk there, the
+    # Jacobi kernel does not: PERF.md)
+    d_ref = max(abs(recs[g][k] - r[k]) for g, r in zip(idx, ref_recs)
+                for k in ("dtc_score_raw", "A2T"))
+
+    def show(key, rs):
+        return [round(float(r[key]), 4) for r in rs]
+
+    a2t = np.array([r["A2T"] for r in recs])
+    n_dtc = int(sum(r["dtc_score_raw"] > 0 for r in recs))
+    _check(P == 120 and all(r["success"] for r in recs), "[phase-diagram] records")
+    _check(c["smem"] > 0 and c["host_reads"] == 0,
+           f"[phase-diagram] did not run kernel 1's shared-memory variant: {c}")
+    _check(d_host < 1e-12, f"[phase-diagram] records differ from the recipe: {d_host}")
+    _check(d_ref < SCORE_TOL, f"[phase-diagram] the scores differ from the "
+           f"complex128 host points: {d_ref}")
+    print(f"[phase-diagram] sweep_phase_grid, {P} points (L={hc['n_sites']}, "
+          f"{hc['n_periods']} periods, chi cap {hc['max_chi']}) on the card: "
+          f"{P / dt:.2f} points/s ({dt:.2f} s, scoring included); DTC points "
+          f"(stringent score > 0) {n_dtc}; A2T min/mean/max {a2t.min():.4f}/"
+          f"{a2t.mean():.4f}/{a2t.max():.4f}; records against score_phase_point "
+          f"on their traces max |d A2T| {d_host:.1e}; kernel 1: {c['calls']} "
+          f"SVD calls, {c['sweeps']} sweeps in {c['launches']} launches "
+          f"({c['smem']} smem)", flush=True)
+    card = [recs[g] for g in idx]
+    print(f"[phase-diagram] points {idx.tolist()}, card / complex128 host "
+          f"traces of [phase-grid]: stringent score {show('dtc_score_raw', card)} / "
+          f"{show('dtc_score_raw', ref_recs)}; avg max_chi "
+          f"{show('avg_bond_dim', card)} / {show('avg_bond_dim', ref_recs)}; "
+          f"entanglement penalty {show('entanglement_penalty', card)} / "
+          f"{show('entanglement_penalty', ref_recs)}; A2T {show('A2T', card)} / "
+          f"{show('A2T', ref_recs)}; max |d| of the score and A2T {d_ref:.2e} "
+          f"(< {SCORE_TOL:.0e})", flush=True)
+    return c
+
+
+def phase_drive_diagram():
+    """generate_drive_diagram's default grid through sweep_drive_grid: 12 eps
+    in [0, 0.5] x 10 h in [0, 0.8], chi_pad=48, one program; four points
+    against complex128 on the host CPU: the traces before truncation, the
+    diagram's A2T and subharmonic weight (``DRIVE_SCORE_TOL``)."""
+    from timecrystal_tpu_torch.analysis import phase_diagram as PD
+    from timecrystal_tpu_torch.core.observables import (
+        extract_subharmonic_amplitude, subharmonic_weight_fraction)
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.parallel.sweep import SweepSpec
+
+    params, g, d = _config_params(), GRID, DRIVE_DIAGRAM
+    eps_values, h_values = np.linspace(*d["eps"]), np.linspace(*d["h"])
+    _reset_kernel1_counts()                  # this path's counts start here
+    res, dt = _timed(lambda: PD.sweep_drive_grid(eps_values, h_values, params,
+                                                 device="cuda"))
+    c = _kernel1_counts()
+    tr, P = res["traces"], len(res["records"])
+    for k, v in tr.items():
+        _check(bool(np.all(np.isfinite(v))), f"[drive-diagram] non-finite {k}")
+    _check(P == 120 and res["A2T"].shape == (12, 10), "[drive-diagram] grid")
+    _check(c["smem"] > 0 and c["host_reads"] == 0,
+           f"[drive-diagram] did not run kernel 1's shared-memory variant: {c}")
+    a2t, w2t = res["A2T"], res["subharmonic_weight"]
+    print(f"[drive-diagram] sweep_drive_grid, {P} points (12 eps in [0, 0.5] x "
+          f"10 h in [0, 0.8], L={g['L']}, chi_pad={DRIVE['chi']}, chi cap "
+          f"{g['chi_max']}, {g['n_periods']} periods, one program) on the card: "
+          f"{P / dt:.2f} points/s ({dt:.2f} s); A2T min/max {a2t.min():.4f}/"
+          f"{a2t.max():.4f}, A2T at eps = 0 / 0.5 (mean over h) "
+          f"{a2t[0].mean():.4f} / {a2t[-1].mean():.4f}; subharmonic weight "
+          f"min/max {w2t.min():.4f}/{w2t.max():.4f}; kernel 1: {c['calls']} SVD "
+          f"calls, {c['sweeps']} sweeps ({c['sweeps'] / max(c['calls'], 1):.2f} "
+          f"per call) in {c['launches']} launches ({c['smem']} smem)", flush=True)
+    # the same points' fields and kicks as sweep_drive_grid draws them
+    np.random.seed(int(params["RANDOM_SEED"]))
+    base = np.random.uniform(-1.0, 1.0, g["L"])
+    eps, hs = (a.ravel() for a in np.meshgrid(eps_values, h_values, indexing="ij"))
+    spec = SweepSpec(L=g["L"], chi=DRIVE["chi"], n_periods=g["n_periods"],
+                     theta=float(np.pi), dtype="float32",
+                     tp=TruncParams(chi_max=g["chi_max"], svd_min=g["svd_min"],
+                                    trunc_cut=g["trunc_cut"]))
+    idx = np.linspace(0, P - 1, GRID["n_reference"]).round().astype(int)
+    tau = float(params["T_DRIVE"]) / 2.0
+    ref = _reference_check("drive-diagram", tr, hs[:, None] * base[None, :],
+                           np.full(P, tau), spec, np.pi * (1.0 - eps), idx,
+                           gate_truncated=False)
+    # the diagram's outputs from the complex128 traces, by the same recipes
+    times = np.arange(g["n_periods"] + 1) * 2.0 * tau
+    host = np.array([[extract_subharmonic_amplitude(times, s_, 2.0 * tau),
+                      subharmonic_weight_fraction(times, s_, 2.0 * tau)]
+                     for s_ in ref["staggered_magnetization"]])
+    card = np.stack([a2t.ravel()[idx], w2t.ravel()[idx]], 1)
+    dtc = host[:, 1] >= DTC_WEIGHT
+    d = np.abs(card - host).max(1)
+    print(f"[drive-diagram] points {idx.tolist()} (eps "
+          f"{np.round(eps[idx], 3).tolist()}, h {np.round(hs[idx], 2).tolist()}): "
+          f"A2T / subharmonic weight card {np.round(card, 4).tolist()}, complex128 "
+          f"host {np.round(host, 4).tolist()}; DTC points (complex128 weight >= "
+          f"{DTC_WEIGHT}) {dtc.tolist()}: max |d| there "
+          f"{float(d[dtc].max(initial=0)):.2e} (< {DRIVE_SCORE_TOL:.0e}), the "
+          f"card's weight below {DTC_WEIGHT} at the others", flush=True)
+    _check(bool(np.all(d[dtc] < DRIVE_SCORE_TOL)
+                and np.all(card[~dtc, 1] < DTC_WEIGHT)),
+           f"[drive-diagram] A2T / weight differ from complex128: {card} {host}")
+    return c
+
+
+def phase_correlation():
+    """evolve_batch with correlation_site = L//2 on four phase-grid points
+    on the card against complex128 on the host CPU; the t=0 row of zz_corr
+    against zz_correlation_profile of the initial state."""
+    import torch
+
+    from timecrystal_tpu_torch.core.mps import create_initial_state
+    from timecrystal_tpu_torch.core.observables import zz_correlation_profile
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.parallel.sweep import (SweepSpec, _basis_indices,
+                                                      evolve_batch,
+                                                      phase_grid_batch)
+
+    g = GRID
+    spec = SweepSpec(L=g["L"], chi=g["chi"], n_periods=g["n_periods"],
+                     theta=float(np.pi), dtype="float32",
+                     tp=TruncParams(chi_max=g["chi_max"], svd_min=g["svd_min"],
+                                    trunc_cut=g["trunc_cut"]))
+    hf, taus, _, _ = phase_grid_batch(np.linspace(*g["h"]), np.linspace(*g["T"]),
+                                      spec, disorder_seed=g["seed"])
+    idx = np.linspace(0, len(taus) - 1, g["n_reference"]).round().astype(int)
+    site = g["L"] // 2
+    _reset_kernel1_counts()                  # this path's counts start here
+    tr, dt = _timed(lambda: evolve_batch(
+        hf[idx], taus[idx], _basis_indices(g["L"], "neel"), spec,
+        correlation_site=site, device="cuda"))
+    c = _kernel1_counts()
+    psi0 = create_initial_state(g["L"], "neel", chi=g["chi"],
+                                dtype=torch.complex64, device="cuda")
+    zz0 = zz_correlation_profile(psi0, site).cpu().numpy()
+    _check(tr["zz_corr"].shape == (len(idx), g["n_periods"] + 1, g["L"]),
+           "[correlation] zz_corr shape")
+    _check(bool(np.all(tr["zz_corr"][:, 0] == zz0)),
+           "[correlation] t=0 row differs from zz_correlation_profile(psi0)")
+    _check(bool(np.all(tr["zz_corr"][:, :, site] == 1.0)),
+           "[correlation] <z_i z_i> != 1")
+    _check(c["smem"] > 0, f"[correlation] ran no kernel-1 sweep: {c}")
+    print(f"[correlation] evolve_batch(correlation_site={site}) on phase-grid "
+          f"points {idx.tolist()} ({g['n_periods']} periods): {dt:.2f} s; "
+          f"zz_corr {list(tr['zz_corr'].shape)}, t=0 row equal to "
+          f"zz_correlation_profile(psi0); kernel 1: {c['launches']} launches "
+          f"({c['smem']} smem)", flush=True)
+    _reference_check("correlation", tr, hf[idx], taus[idx], spec, None,
+                     np.arange(len(idx)), correlation_site=site)
+    return c
 
 
 def main() -> int:
@@ -1844,10 +2143,17 @@ def main() -> int:
     chi512 = phase_steady_chi512(psi, gates, tp)
     del psi
     stamp("steady leg")
-    grids = (phase_phase_grid(), phase_drive_grid())
+    phase_grid, grid_ref = phase_phase_grid()
+    grids = (phase_grid, phase_drive_grid())
     stamp("grids")
+    # the application layer: the phase and drive diagrams through
+    # analysis/phase_diagram.py, the correlation trace, Figures A-D; each
+    # path's kernel-1 launches counted from 0 join the main path's
+    app = (phase_phase_diagram(grid_ref), phase_drive_diagram(),
+           phase_correlation(), phase_figures())
+    stamp("application layer")
     for c in ((settle, chi512) + tuple(r["launches"] for r in steady.values())
-              + tuple(closed.values()) + grids):
+              + tuple(closed.values()) + grids + app):
         for v in ("smem", "cluster"):
             launches[v] += c[v]
     phase_tdvp_oracle()
@@ -1860,8 +2166,9 @@ def main() -> int:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # kernel 1 is reported as its two variants, each with its launches on
-    # the main paths (shared memory: the window and the phase and drive
-    # grids; cluster: the n512 leg and the steady leg), ms per sweep at
+    # the main paths (shared memory: the window, the phase and drive grids
+    # and the application layer's paths; cluster: the n512 leg and the
+    # steady leg), ms per sweep at
     # [320, 64, 64] (shared memory) and [20, 512, 512] (cluster), and ms per
     # sweep at every shape timed in ms_by_shape.  Kernel 2 as the main path
     # runs it, the resident variant: ms per sweep and per call at

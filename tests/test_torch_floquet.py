@@ -207,14 +207,20 @@ def test_observables_match_jax():
 
 
 def test_unported_options_raise():
+    """with_states and checkpoint_dir raise naming their ROADMAP item;
+    correlation_site is ported: it adds zz_corr, the last row of which is
+    zz_correlation_profile of the final state."""
     m = _entangling_model(L=4, chi=4)
     psi0 = tmps.create_initial_state(4, "neel", chi=4, dtype=C128, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tebd.evolve_floquet_scan(psi0, m.gates, 2, TruncParams(),
                                  with_states=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tebd.evolve_floquet_scan(psi0, m.gates, 2, TruncParams(),
-                                 correlation_site=1)
+    psi, tr = tebd.evolve_floquet_scan(psi0, m.gates, 2, TruncParams(),
+                                       correlation_site=1)
+    assert tr["zz_corr"].shape == (2, 4)
+    np.testing.assert_allclose(tr["zz_corr"][-1].numpy(),
+                               tobs.zz_correlation_profile(psi, 1).numpy(),
+                               rtol=0, atol=1e-12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tebd.evolve_floquet_auto(dict(n_sites=4, J=1.0, h_disorder=0.3,
                                       tau=1.0, device="cpu"), "neel", 2,

@@ -13,6 +13,7 @@ import torch
 
 import timecrystal_tpu_torch
 from timecrystal_tpu_torch import convert
+from timecrystal_tpu_torch.analysis import figures, phase_diagram
 from timecrystal_tpu_torch.core import gates, mps, observables, truncate
 from timecrystal_tpu_torch.dynamics import tdvp
 from timecrystal_tpu_torch.models import kicked_ising, long_range
@@ -30,6 +31,13 @@ ENTRY_POINTS = [
     tdvp.TDVPEvolution.from_spin_chain, tdvp.TDVPFloquetEvolution,
     long_range.build_fsm_mpo, long_range.long_range_ising_mpo,
     long_range.LongRangeKickedIsing, long_range.scan_interaction_range,
+    mps.haar_product_state, mps.from_dense_tensors,
+    observables.dynamic_structure_factor, phase_diagram.calculate_phase_point,
+    phase_diagram.sweep_phase_grid, phase_diagram.sweep_drive_grid,
+    phase_diagram.generate_phase_diagram, phase_diagram.generate_drive_diagram,
+    phase_diagram.generate_range_diagram, figures.simulate_perfect_dtc,
+    figures.simulate_disordered_dtc, figures.simulate_dephasing_dtc,
+    figures.simulate_multi_site_dtc, figures.generate_individual_figures,
 ]
 
 REPO = Path(__file__).resolve().parents[1]
@@ -127,3 +135,14 @@ def test_default_device_never_falls_back_to_the_cpu():
         return
     with pytest.raises((AssertionError, RuntimeError)):
         mps.create_initial_state(4)
+
+
+def test_top_level_exports_the_ported_names():
+    """The JAX package's top-level names that the port has are exported
+    from the port's package too."""
+    expected = {"MPS", "create_initial_state", "TruncParams", "CustomFloquet",
+                "TDVPEvolution", "TDVPFloquetEvolution", "KickedIsingModel"}
+    assert set(timecrystal_tpu_torch.__all__) == expected
+    assert timecrystal_tpu_torch.CustomFloquet is sys.modules[
+        "timecrystal_tpu_torch.dynamics.tebd"].CustomFloquet
+    assert timecrystal_tpu_torch.MPS is mps.MPS

@@ -75,7 +75,8 @@ def test_unported_arguments_raise(arg):
     """evolve_batch_auto's options that are not ported raise naming their
     ROADMAP item.  ``cap_svd_method`` is ported: at L=4 the cap (chi 4) is
     the full rank, so the run with the cap chunks on 'jacobi_core' gives
-    the traces of the run without it to 1e-8."""
+    the traces of the run without it to 1e-8.  ``correlation_site`` is
+    ported: it adds zz_corr and leaves every other trace as it was."""
     spec = tsw.SweepSpec(L=4, chi=4, n_periods=1, dtype="float64")
     args = (np.zeros((1, 4)), np.ones(1), tsw._basis_indices(4, "neel"))
     if arg == "cap_svd_method":
@@ -89,6 +90,19 @@ def test_unported_arguments_raise(arg):
         for k in ref:
             np.testing.assert_allclose(out[k], ref[k], rtol=0, atol=1e-8,
                                        err_msg=k)
+        return
+    if arg == "correlation_site":
+        spec = spec._replace(n_periods=4, theta=0.9 * np.pi)
+        ref, _ = tsw.evolve_batch_auto(*args, spec, chi_start=2,
+                                       chunk_periods=2, device="cpu")
+        out, _ = tsw.evolve_batch_auto(*args, spec, chi_start=2,
+                                       chunk_periods=2, device="cpu",
+                                       correlation_site=1)
+        assert set(out) == set(ref) | {"zz_corr"}
+        assert out["zz_corr"].shape == (1, 5, 4)
+        np.testing.assert_array_equal(out["zz_corr"][0, 0], [-1, 1, -1, 1])
+        for k in ref:
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsw.evolve_batch_auto(*args, spec, device="cpu", **{arg: 1})

@@ -29,3 +29,15 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+# the top-level names of the JAX package that the port has
+from .core.mps import MPS, create_initial_state  # noqa: E402,F401
+from .core.truncate import TruncParams  # noqa: E402,F401
+from .dynamics.tdvp import TDVPEvolution, TDVPFloquetEvolution  # noqa: E402,F401
+from .dynamics.tebd import CustomFloquet  # noqa: E402,F401
+from .models.kicked_ising import KickedIsingModel  # noqa: E402,F401
+
+__all__ = [
+    "MPS", "create_initial_state", "TruncParams", "CustomFloquet",
+    "TDVPEvolution", "TDVPFloquetEvolution", "KickedIsingModel",
+]

@@ -115,6 +115,37 @@ def create_initial_state(n_sites: int, state_type: str = "all_up",
     return product_state(idx, chi=chi, d=d, dtype=dtype, device=device)
 
 
+def haar_product_state(n_sites: int, chi: int, d: int = 2,
+                       dtype=torch.complex64, device="cuda",
+                       rng: np.random.Generator | int | None = None) -> MPS:
+    """Product state with an independent Haar-random local unit vector per
+    site (complex Gaussian, normalized), drawn from ``rng`` (a numpy
+    Generator or seed; a fresh default_rng when None).  Unlike a random
+    basis state it has weight in every symmetry sector."""
+    gen = rng if isinstance(rng, np.random.Generator) else np.random.default_rng(rng)
+    v = gen.normal(size=(n_sites, d)) + 1j * gen.normal(size=(n_sites, d))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    tensors = [v[i].reshape(1, d, 1) for i in range(n_sites)]
+    lams = [np.ones(1)] * (n_sites + 1)
+    return from_dense_tensors(tensors, lams, chi, dtype=dtype, device=device)
+
+
+def from_dense_tensors(tensors: list, lams: list, chi: int,
+                       dtype=torch.complex64, device="cuda") -> MPS:
+    """Padded MPS from dense per-site B tensors [chi_l, d, chi_r] and
+    per-bond Schmidt vectors (host numpy)."""
+    L, d = len(tensors), tensors[0].shape[1]
+    B = np.zeros((L, chi, d, chi), dtype=np.complex128)
+    lam = np.zeros((L + 1, chi))
+    for i, T in enumerate(tensors):
+        cl, _, cr = T.shape
+        B[i, :cl, :, :cr] = T
+    for i, s in enumerate(lams):
+        lam[i, :len(s)] = s
+    return MPS(B=torch.as_tensor(B).to(dtype=dtype, device=device),
+               lam=torch.as_tensor(lam).to(dtype=dtype.to_real(), device=device))
+
+
 def apply_sz(psi: MPS, site: int) -> MPS:
     """sigma^z at one site (diagonal unitary: B-form and Schmidt values are
     preserved)."""
@@ -140,6 +171,11 @@ def overlap(psi1: MPS, psi2: MPS) -> torch.Tensor:
     return E[..., 0, 0]
 
 
+def norm_squared(psi: MPS) -> torch.Tensor:
+    """<psi|psi> (real), one per chain."""
+    return overlap(psi, psi).real
+
+
 def expectation_one_site(psi: MPS, op: torch.Tensor) -> torch.Tensor:
     """<psi| op_i |psi> for every site, [..., L] complex.  The left
     environment at site i is diag(lam[i]^2), the right one the identity
@@ -155,6 +191,11 @@ def entanglement_entropy(psi: MPS, eps: float = 1e-30) -> torch.Tensor:
     p = psi.lam ** 2
     return -torch.where(p > eps, p * torch.log(p + eps),
                         torch.zeros_like(p)).sum(-1)
+
+
+def entanglement_spectrum(psi: MPS, cut: int) -> torch.Tensor:
+    """Schmidt values at bond ``cut``, [..., chi]."""
+    return psi.lam[..., cut, :]
 
 
 def bond_dimensions(psi: MPS, tol: float = 1e-14) -> torch.Tensor:

@@ -18,7 +18,8 @@ import torch
 from ..core import gates as G
 from ..core.mps import (MPS, entanglement_entropy, expectation_one_site,
                         max_bond_dimension, overlap)
-from ..core.observables import add_derived_magnetization
+from ..core.observables import (add_derived_magnetization,
+                                zz_correlation_profile)
 from ..core.truncate import PROJECTED_SVD_METHODS, TruncParams
 from ..models.kicked_ising import (FloquetGates, floquet_period,
                                    floquet_period_merged, ising_half_step,
@@ -32,14 +33,20 @@ def _abs2(z: torch.Tensor) -> torch.Tensor:
     return z.real * z.real + z.imag * z.imag
 
 
-def _measure(psi: MPS, ref: MPS, sz_op: torch.Tensor, err: torch.Tensor) -> dict:
-    return dict(sz_sites=expectation_one_site(psi, sz_op).real,
-                loschmidt_echo=_abs2(overlap(ref, psi)),
-                entropies=entanglement_entropy(psi),
-                max_chi=max_bond_dimension(psi),
-                trunc_err=err)
+def _measure(psi: MPS, ref: MPS, sz_op: torch.Tensor, err: torch.Tensor,
+             correlation_site: int | None = None) -> dict:
+    out = dict(sz_sites=expectation_one_site(psi, sz_op).real,
+               loschmidt_echo=_abs2(overlap(ref, psi)),
+               entropies=entanglement_entropy(psi),
+               max_chi=max_bond_dimension(psi),
+               trunc_err=err)
+    if correlation_site is not None:
+        out["zz_corr"] = zz_correlation_profile(psi, correlation_site)
+    return out
 
 
+def _trace_keys(correlation_site: int | None) -> tuple:
+    return TRACE_KEYS + (() if correlation_site is None else ("zz_corr",))
 
 
 def to_host(traces: dict) -> dict:
@@ -69,13 +76,15 @@ def evolve_floquet_scan(psi0: MPS, gates: FloquetGates, n_periods: int,
     sz and LE traces are exact, entropies/max_chi belong to the
     half-step-shifted state, and the returned MPS is mapped back with
     H^{-1}.  ``ref_state`` is the Loschmidt reference (default psi0).
+
+    ``correlation_site=i`` adds ``zz_corr [..., n_meas, L]``: the
+    <sigma^z_i sigma^z_j> profile of every measurement
+    (``core.observables.zz_correlation_profile``), exact in both frames (H
+    is z-diagonal).
     """
     if with_states:
         raise NotImplementedError("with_states is not ported yet (ROADMAP.md "
                                   "queue 1, 'The rest of tebd.py')")
-    if correlation_site is not None:
-        raise NotImplementedError("correlation_site is not ported yet (ROADMAP.md "
-                                  "queue 1, 'Observables')")
     sz_op = G.pauli_c("z", psi0.dtype, psi0.device)
     if ref_state is None:
         ref_state = psi0
@@ -103,12 +112,13 @@ def evolve_floquet_scan(psi0: MPS, gates: FloquetGates, n_periods: int,
         for i in range(m):
             psi, e = step(psi, gates, tp)
             if i == phase:
-                outs.append(_measure(psi, ref, sz_op, e))
+                outs.append(_measure(psi, ref, sz_op, e, correlation_site))
     if not outs:            # n_periods == 0: empty traces of the right shapes
-        outs = [_measure(psi, ref, sz_op, psi.lam.new_zeros(psi.lead))]
+        outs = [_measure(psi, ref, sz_op, psi.lam.new_zeros(psi.lead),
+                         correlation_site)]
         n_meas = 0
     traces = {k: torch.stack([o[k] for o in outs], time_dim).narrow(
-        time_dim, 0, n_meas) for k in TRACE_KEYS}
+        time_dim, 0, n_meas) for k in _trace_keys(correlation_site)}
     if frame == "merged":
         psi, e_exit = ising_half_step_inverse(psi, gates, tp)
         # frame-change bookkeeping error, kept out of the per-period trace;
@@ -119,9 +129,10 @@ def evolve_floquet_scan(psi0: MPS, gates: FloquetGates, n_periods: int,
     return psi, traces
 
 
-def _initial_observables(psi0: MPS) -> dict:
+def _initial_observables(psi0: MPS, correlation_site: int | None = None) -> dict:
     sz_op = G.pauli_c("z", psi0.dtype, psi0.device)
-    return _measure(psi0, psi0, sz_op, psi0.lam.new_zeros(psi0.lead))
+    return _measure(psi0, psi0, sz_op, psi0.lam.new_zeros(psi0.lead),
+                    correlation_site)
 
 
 class CustomFloquet:
@@ -149,7 +160,9 @@ class CustomFloquet:
         """Observable traces without materializing states: (traces, times,
         info), traces of length n_stored + 1 (initial state included).
         ``measure_every=m`` stores after periods 1, m+1, 2m+1, ...
-        (measured in-loop when m divides n_periods)."""
+        (measured in-loop when m divides n_periods).  ``correlation_site=i``
+        adds ``zz_corr [n_stored+1, L]``, the <sigma^z_i sigma^z_j> profile
+        of every stored state."""
         start = time.perf_counter()
         if measure_every > 1 and n_periods % measure_every == 0:
             psi_final, tr = evolve_floquet_scan(
@@ -167,9 +180,9 @@ class CustomFloquet:
         tr = to_host(tr)          # waits for the device
         wall_time = time.perf_counter() - start
 
-        init = to_host(_initial_observables(psi_initial))
+        init = to_host(_initial_observables(psi_initial, correlation_site))
         traces = {k: np.concatenate([np.asarray(init[k])[None], tr[k][sel]],
-                                    axis=0) for k in TRACE_KEYS}
+                                    axis=0) for k in _trace_keys(correlation_site)}
         add_derived_magnetization(traces, psi_initial.L)
         times = [0.0] + [(int(p) + 1) * 2 * self.model.tau for p in periods]
         bond_dims = [int(x) for x in traces["max_chi"]]

@@ -1,8 +1,9 @@
-"""The subharmonic amplitude A2T of a batch of traces, on the device.
+"""Spectra of observable traces on the device.
 
-Port of ``batched_subharmonic_amplitude`` from ``timecrystal_tpu/ops/fft.py``.
-The JAX package evaluates the DFT as a dense matmul because the TPU has no
-FFT; here it is ``torch.fft.rfft``.  The recipe is the host one of
+Port of ``timecrystal_tpu/ops/fft.py``: ``power_spectrum``,
+``batched_subharmonic_amplitude`` and ``spacetime_power``.  The JAX package
+evaluates its DFTs as dense matmuls (``rdft``) because the TPU has no FFT;
+here they are ``torch.fft``.  The A2T recipe is the host one of
 ``core.observables.extract_subharmonic_amplitude`` (DC removal -> Hann
 window -> FFT -> positive bins -> |F(1/2T)| / max |F|), bin for bin.
 """
@@ -11,6 +12,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def power_spectrum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """|DFT(x)|^2 of a real signal along ``axis`` (full spectrum, numpy's
+    bin order)."""
+    return torch.fft.fft(torch.as_tensor(x), dim=axis).abs() ** 2
 
 
 def batched_subharmonic_amplitude(times: torch.Tensor, series: torch.Tensor,
@@ -49,3 +56,22 @@ def batched_subharmonic_amplitude(times: torch.Tensor, series: torch.Tensor,
                       torch.zeros_like(amp))
     finite = (torch.isfinite(series).all(-1) & torch.isfinite(dt) & (dt > 0))
     return torch.where(finite, out, torch.full_like(out, float("nan")))
+
+
+def spacetime_power(c_rt: torch.Tensor, window_time: bool = True,
+                    remove_dc: bool = True) -> torch.Tensor:
+    """|DFT_{t -> omega, r -> k} C|^2 of a real space-time map ``c_rt``
+    [..., n_t, L] (e.g. the ``zz_corr`` trace of a ``correlation_site``
+    run), optionally DC-removed (the per-r time mean) and Hann-windowed
+    along time.  Returns [..., n_pos, L], n_pos = (n_t - 1) // 2: the
+    positive time bins 1..n_pos (the real input's spectrum is conjugate
+    symmetric) and all L momenta (bin m is k = 2 pi m / L)."""
+    x = torch.as_tensor(c_rt)
+    n_t = x.shape[-2]
+    if remove_dc:
+        x = x - x.mean(-2, keepdim=True)
+    if window_time:
+        x = x * torch.as_tensor(np.hanning(n_t), dtype=x.dtype,
+                                device=x.device)[:, None]
+    n_pos = (n_t - 1) // 2
+    return torch.fft.fft2(x)[..., 1:n_pos + 1, :].abs() ** 2

@@ -22,7 +22,7 @@ from ..core.observables import (add_derived_magnetization,
                                 extract_subharmonic_amplitude)
 from ..core.truncate import PROJECTED_SVD_METHODS, TruncParams
 from ..dynamics.tebd import (_next_chi, _stage_decision, _stage_err_tol,
-                             evolve_floquet_scan, to_host)
+                             _trace_keys, evolve_floquet_scan, to_host)
 from ..models.kicked_ising import draw_disorder_batch, make_floquet_gates
 from ..ops.fft import batched_subharmonic_amplitude
 
@@ -54,7 +54,6 @@ def _refuse_unported(**options) -> None:
     """Raise NotImplementedError for an option of the JAX package's
     ensembles that is not ported yet, naming its ROADMAP.md item."""
     items = {"checkpoint_dir": "Utilities", "mesh": "Scale-out",
-             "correlation_site": "Observables",
              "two_time_anchor": "The rest of tebd.py"}
     for name, value in options.items():
         if value is not None:
@@ -62,17 +61,13 @@ def _refuse_unported(**options) -> None:
                                       f"queue 1, '{items[name]}')")
 
 
-# the per-period traces of evolve_floquet_scan that the ensembles keep
-_CHUNK_KEYS = ("sz_sites", "loschmidt_echo", "entropies", "max_chi",
-               "trunc_err")
-
-
-def _with_initial_row(cat: dict, basis: np.ndarray) -> dict:
+def _with_initial_row(cat: dict, basis: np.ndarray,
+                      correlation_site: int | None = None) -> dict:
     """The ensemble traces [R, n_periods+1, ...] from the per-period host
-    traces ``cat`` [R, n_periods, ...] (``_CHUNK_KEYS``): the t=0 row of
-    the product state ``basis`` prepended (sz = 1 - 2 basis, LE and max_chi
-    1, entropy and trunc_err 0), the mid-chain entropy kept, and the
-    magnetizations derived."""
+    traces ``cat`` [R, n_periods, ...] (``tebd._trace_keys``): the t=0 row
+    of the product state ``basis`` prepended (sz = 1 - 2 basis, LE and
+    max_chi 1, entropy and trunc_err 0, zz_corr s_i s_j), the mid-chain
+    entropy kept, and the magnetizations derived."""
     R, _, L = cat["sz_sites"].shape
     sz0 = np.broadcast_to((1.0 - 2.0 * basis).astype(cat["sz_sites"].dtype),
                           (R, L))
@@ -90,6 +85,14 @@ def _with_initial_row(cat: dict, basis: np.ndarray) -> dict:
              cat["entropies"][:, :, L // 2]], axis=1),
         "trunc_err": first("trunc_err", 0),
     }
+    if correlation_site is not None:
+        # zz_correlation_profile of the product state: s_i s_j, exactly 1
+        # at j == i (s = 1 - 2 basis)
+        s = (1.0 - 2.0 * basis).astype(cat["zz_corr"].dtype)
+        zz0 = s[correlation_site] * s
+        zz0[correlation_site] = 1.0
+        traces["zz_corr"] = np.concatenate(
+            [np.broadcast_to(zz0, (R, 1, L)), cat["zz_corr"]], axis=1)
     return add_derived_magnetization(traces, L)
 
 
@@ -129,9 +132,10 @@ def evolve_batch(h_fields, taus, basis_indices, spec: SweepSpec,
 
     Returns host numpy traces [R, n_periods+1, ...] with the t=0 row:
     sz_sites, loschmidt_echo, max_chi, entropy_mid, trunc_err,
-    magnetization, staggered_magnetization."""
-    _refuse_unported(correlation_site=correlation_site,
-                     two_time_anchor=two_time_anchor)
+    magnetization, staggered_magnetization; with ``correlation_site=i``
+    also zz_corr [R, n_periods+1, L], the <sz_i sz_j> profile of every
+    period."""
+    _refuse_unported(two_time_anchor=two_time_anchor)
     device = torch.device(device)
     cdtype, rdtype = _working_dtypes(spec)
     h = torch.as_tensor(h_fields, dtype=rdtype, device=device)
@@ -145,8 +149,11 @@ def evolve_batch(h_fields, taus, basis_indices, spec: SweepSpec,
     psi0 = product_state(np.broadcast_to(basis, (R, L)), chi=spec.chi,
                          dtype=cdtype, device=device)
     _, tr = evolve_floquet_scan(psi0, gates, spec.n_periods,
-                                _stage_tp(spec.tp, device), frame=spec.frame)
-    return _with_initial_row(to_host({k: tr[k] for k in _CHUNK_KEYS}), basis)
+                                _stage_tp(spec.tp, device), frame=spec.frame,
+                                correlation_site=correlation_site)
+    return _with_initial_row(
+        to_host({k: tr[k] for k in _trace_keys(correlation_site)}), basis,
+        correlation_site)
 
 
 def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
@@ -169,6 +176,8 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
     ``core.truncate.PROJECTED_SVD_METHODS``: the saturated steady leg).
     Below the cap a projected method is replaced by 'jacobi'.
 
+    ``correlation_site=i`` adds ``zz_corr [R, n_periods+1, L]``.
+
     ``h_fields`` [R, L] and ``taus`` [R] (numpy or tensors) are cast to the
     spec's real dtype on ``device``.  Returns (traces, info): host numpy
     traces [R, n_periods+1, ...] (t=0 row prepended) and info with
@@ -179,8 +188,7 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
     routes to the Gram/eigh SVD there; this port sends every even n to the
     Jacobi kernel, so it has no floor.
     """
-    _refuse_unported(checkpoint_dir=checkpoint_dir, mesh=mesh,
-                     correlation_site=correlation_site)
+    _refuse_unported(checkpoint_dir=checkpoint_dir, mesh=mesh)
     device = torch.device(device)
     cdtype, rdtype = _working_dtypes(spec)
     err_tol = _stage_err_tol(cdtype, spec.tp.svd_min, spec.L - 1)
@@ -216,7 +224,8 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
                 # methods report at the noise floor
                 tp = tp._replace(svd_method="jacobi")
         psi_next, tr = evolve_floquet_scan(psi, gates, n, tp, ref_state=psi0,
-                                           frame=spec.frame)
+                                           frame=spec.frame,
+                                           correlation_site=correlation_site)
         tr = to_host(tr)
         exit_lam = psi_next.lam.cpu().numpy()
         # the batch shares one schedule: ANY realization's truncation
@@ -245,8 +254,8 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
 
     wall_time = time.perf_counter() - start
     cat = {k: np.concatenate([c[k] for c in chunks], axis=1)[:, :n_periods]
-           for k in _CHUNK_KEYS}
-    traces = _with_initial_row(cat, basis)
+           for k in _trace_keys(correlation_site)}
+    traces = _with_initial_row(cat, basis, correlation_site)
     info = {
         "wall_time": wall_time,
         "chain_periods_per_second": (R * n_periods / wall_time
@@ -270,8 +279,9 @@ def disorder_ensemble(generator: torch.Generator, n_realizations: int,
     a JAX key, so the two packages' fields differ), one ``tau`` for all,
     evolved by ``evolve_batch`` or, with ``staged=True``, by the chi-staged
     ``evolve_batch_auto`` (``chi_start``, ``chunk_periods``,
-    ``cap_svd_method``).  Returns the traces dict of either."""
-    _refuse_unported(mesh=mesh, correlation_site=correlation_site)
+    ``cap_svd_method``), either with ``correlation_site``.  Returns the
+    traces dict of either."""
+    _refuse_unported(mesh=mesh)
     h = draw_disorder_batch(generator, n_realizations, spec.L, h_disorder)
     taus = np.full(n_realizations, tau)
     basis = _basis_indices(spec.L, state_type)
@@ -280,9 +290,11 @@ def disorder_ensemble(generator: torch.Generator, n_realizations: int,
                                       chi_start=chi_start,
                                       chunk_periods=chunk_periods,
                                       cap_svd_method=cap_svd_method,
+                                      correlation_site=correlation_site,
                                       device=device)
         return traces
-    return evolve_batch(h, taus, basis, spec, device=device)
+    return evolve_batch(h, taus, basis, spec,
+                        correlation_site=correlation_site, device=device)
 
 
 def phase_grid_batch(h_over_J_values, T_J_values, spec: SweepSpec,
