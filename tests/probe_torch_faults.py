@@ -15,7 +15,9 @@ Pallas kernel in interpret mode).
 T_DRIVE 2) through evolve_batch in float32 with 'jacobi' (the port's torch
 twin, the JAX package's Pallas kernel in interpret mode) and with LAPACK,
 each held against complex128 LAPACK: max |d sz| before truncation and per
-point over all rows.
+point over all rows, and each float32 'jacobi' run's distance over the
+port's complex64 LAPACK run's (the witness of chip_smoke.py's
+[drive-diagram]).
 """
 
 import argparse
@@ -148,14 +150,19 @@ def probe_drift(L, chi, cap, n_periods, points):
             ("JAX float32 'jacobi' (interpret)", lambda: jax_run("jacobi")),
             ("port complex64 LAPACK", lambda: port("float32", "native")),
             ("JAX float32 LAPACK", lambda: jax_run("native")))
+    per_point = {}
     for name, run in runs:
         t0 = time.perf_counter()
         d = np.abs(run()["sz_sites"] - ref["sz_sites"])
-        per_point = d.reshape(len(points), -1).max(1)
+        per_point[name] = d.reshape(len(points), -1).max(1)
         print(f"[drift] {name}: max |d sz| before truncation "
               f"{d[exact].max():.2e}, all rows per point "
-              f"{[f'{x:.2e}' for x in per_point]} ({time.perf_counter() - t0:.0f} s)",
-              flush=True)
+              f"{[f'{x:.2e}' for x in per_point[name]]} "
+              f"({time.perf_counter() - t0:.0f} s)", flush=True)
+    witness = per_point["port complex64 LAPACK"]
+    for name in list(per_point)[:2]:
+        print(f"[drift] {name} over port complex64 LAPACK, per point: "
+              f"{[f'{x:.3g}' for x in per_point[name] / witness]}", flush=True)
 
 
 def main(argv=None):

@@ -10,6 +10,7 @@ same rank-1 theta = pi dynamics with LAPACK splits on the CPU; their traces
 differ by float32 rounding, ~1e-6).
 """
 
+import logging
 import os
 import subprocess
 import sys
@@ -212,6 +213,23 @@ def test_figure_simulations_match_jax(key):
         assert abs(f[np.argmax(p)] - 0.5) < 0.05
     if key == "D":
         assert len(ours[1]) == len(tfig.FIGURE_SITES)
+
+
+def test_auto_runs_log_their_info(caplog):
+    """evolve_floquet_auto logs its info dict at DEBUG level (the record's
+    ``run_info``): the chi a figure reached, which the figures' return
+    values do not carry.  One record per run, equal to the returned info."""
+    kw = dict(n_sites=L8, J=1.0, h_disorder=0.3, tau=1.0, disorder_seed=3,
+              theta=0.8 * np.pi, device="cpu", dtype=C64)
+    with caplog.at_level(logging.DEBUG, logger=ttebd.__name__):
+        _, _, info, _ = ttebd.evolve_floquet_auto(kw, "neel", 8,
+                                                  {"chi_max": 16}, chi_start=4)
+        tfig.simulate_perfect_dtc(PARAMS, n_sites=L8, n_periods=4,
+                                  device="cpu", dtype=C64)
+    logged = [r.run_info for r in caplog.records if hasattr(r, "run_info")]
+    assert len(logged) == 2 and logged[0] is info
+    assert info["chi_escalations"] and info["chi_pad_used"] > 4
+    assert logged[1]["n_periods"] == 4 and len(logged[1]["bond_dimensions"]) == 5
 
 
 def test_sweep_phase_grid_matches_jax(monkeypatch):

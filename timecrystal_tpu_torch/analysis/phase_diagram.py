@@ -108,6 +108,32 @@ def sweep_phase_grid(h_values, T_values, params: Dict, mesh=None,
     return {"records": records, "hs": hs, "Ts": Ts, "traces": traces}
 
 
+def drive_grid_batch(eps_values, h_values, params: Dict, chi_pad: int = 48,
+                     n_sites: int | None = None, n_periods: int | None = None,
+                     dtype=torch.complex64):
+    """The drive-strength diagram's batch, point (eps, h) in row-major
+    order: (spec, h_fields [P, L], taus [P], thetas [P] = pi (1 - eps),
+    eps [P], h [P]).
+
+    Every point uses the reference's disorder convention: ONE MT19937
+    pattern from ``np.random.seed(RANDOM_SEED)`` (the global stream, as in
+    the JAX package) scaled by h.  The drive period is T_DRIVE."""
+    hc = GRID_HARDCODED
+    L = int(n_sites or hc["n_sites"])
+    J = float(params.get("J", 1.0))
+    tau = float(params.get("T_DRIVE", 2.0)) / (2.0 * J)
+    spec = SweepSpec(L=L, chi=chi_pad, n_periods=int(n_periods or hc["n_periods"]),
+                     J=J, theta=float(np.pi), tp=_grid_trunc(params),
+                     dtype=_spec_dtype(dtype))
+    np.random.seed(int(params.get("RANDOM_SEED", 42)))
+    base = np.random.uniform(-1.0, 1.0, L)        # the same MT19937 stream
+    eps_g, h_g = np.meshgrid(np.asarray(eps_values, float),
+                             np.asarray(h_values, float), indexing="ij")
+    eps_f, h_f = eps_g.ravel(), h_g.ravel()
+    return (spec, h_f[:, None] * J * base[None, :], np.full(len(eps_f), tau),
+            np.pi * (1.0 - eps_f), eps_f, h_f)
+
+
 def sweep_drive_grid(eps_values, h_values, params: Dict, mesh=None,
                      chi_pad: int = 48, n_sites: int | None = None,
                      n_periods: int | None = None,
@@ -116,34 +142,19 @@ def sweep_drive_grid(eps_values, h_values, params: Dict, mesh=None,
     """Drive-strength diagram: pulse imperfection eps x disorder h/J, kick
     theta = pi (1 - eps) per point, drive period T_DRIVE from params,
     scored by A2T and the subharmonic weight fraction of the staggered
-    magnetization.
-
-    Every point uses the reference's disorder convention: ONE MT19937
-    pattern from ``np.random.seed(RANDOM_SEED)`` (the global stream, as in
-    the JAX package) scaled by h.  ``chunk_size`` None or 0 evolves the
+    magnetization.  The batch is ``drive_grid_batch``'s (the reference's
+    global-stream disorder draw).  ``chunk_size`` None or 0 evolves the
     grid as one program, n > 0 in chunks of n points.
 
     Returns {"A2T" [n_eps, n_h], "subharmonic_weight", "eps", "hs",
     "records", "traces"}."""
     _refuse_unported(mesh=mesh)
-    hc = GRID_HARDCODED
-    L = int(n_sites or hc["n_sites"])
-    n_per = int(n_periods or hc["n_periods"])
-    J = float(params.get("J", 1.0))
-    tau = float(params.get("T_DRIVE", 2.0)) / (2.0 * J)
-    spec = SweepSpec(L=L, chi=chi_pad, n_periods=n_per, J=J,
-                     theta=float(np.pi), tp=_grid_trunc(params),
-                     dtype=_spec_dtype(dtype))
+    spec, h_fields, taus, thetas, eps_f, h_f = drive_grid_batch(
+        eps_values, h_values, params, chi_pad, n_sites, n_periods, dtype)
+    traces = _evolve_chunked(h_fields, taus, _basis_indices(spec.L, "neel"),
+                             spec, thetas, chunk_size, device)
 
-    np.random.seed(int(params.get("RANDOM_SEED", 42)))
-    base = np.random.uniform(-1.0, 1.0, L)        # the same MT19937 stream
-    eps_g, h_g = np.meshgrid(np.asarray(eps_values, float),
-                             np.asarray(h_values, float), indexing="ij")
-    eps_f, h_f = eps_g.ravel(), h_g.ravel()
-    traces = _evolve_chunked(h_f[:, None] * J * base[None, :],
-                             np.full(len(eps_f), tau), _basis_indices(L, "neel"),
-                             spec, np.pi * (1.0 - eps_f), chunk_size, device)
-
+    tau, n_per = float(taus[0]), spec.n_periods
     times = np.arange(n_per + 1) * (2.0 * tau)
     stag = traces["staggered_magnetization"]
     records = []
@@ -158,8 +169,9 @@ def sweep_drive_grid(eps_values, h_values, params: Dict, mesh=None,
         records.append({"eps": float(eps_f[g]), "h_over_J": float(h_f[g]),
                         "A2T": float(a2t[g]),
                         "subharmonic_weight": float(w2t[g]), "success": ok})
-    return {"A2T": a2t.reshape(eps_g.shape),
-            "subharmonic_weight": w2t.reshape(eps_g.shape),
+    shape = (np.size(eps_values), np.size(h_values))
+    return {"A2T": a2t.reshape(shape),
+            "subharmonic_weight": w2t.reshape(shape),
             "eps": np.asarray(eps_values, float),
             "hs": np.asarray(h_values, float), "records": records,
             "traces": traces}

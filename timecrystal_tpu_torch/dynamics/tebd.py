@@ -9,6 +9,7 @@ per chunk, not once per period.
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, List, Tuple
 
@@ -24,6 +25,8 @@ from ..core.truncate import PROJECTED_SVD_METHODS, TruncParams
 from ..models.kicked_ising import (FloquetGates, floquet_period,
                                    floquet_period_merged, ising_half_step,
                                    ising_half_step_inverse)
+
+log = logging.getLogger(__name__)
 
 TRACE_KEYS = ("sz_sites", "loschmidt_echo", "entropies", "max_chi",
               "trunc_err")
@@ -243,7 +246,9 @@ def evolve_floquet_auto(model_kwargs: dict, state_type: str, n_periods: int,
     fills 15/16 of the padding grows chi ahead.
 
     ``model_kwargs`` are KickedIsingModel arguments without chi (``device``
-    and ``dtype`` included).  Returns (traces, times, info, model).
+    and ``dtype`` included).  Returns (traces, times, info, model); info is
+    also logged at DEBUG level (the record's ``run_info``) for callers that
+    only see a wrapper's return value, such as the figures'.
 
     The JAX version floors the ladder at chi=16 on the TPU, because n < 32
     routes to the Gram/eigh SVD there; here every even n runs the Jacobi
@@ -341,4 +346,7 @@ def evolve_floquet_auto(model_kwargs: dict, state_type: str, n_periods: int,
         "chi_escalations": escalations,
         "n_rerun_periods": n_rerun,
     }
+    log.debug("evolve_floquet_auto: L=%d, %d periods, chi_pad %d (%d "
+              "escalations), max_chi %d", model.n_sites, n_periods, chi,
+              len(escalations), max(bond_dims), extra={"run_info": info})
     return traces, times, info, model
