@@ -147,24 +147,28 @@ def test_disorder_ensemble_is_evolve_batch_on_its_fields(staged):
     ("two_time_anchor", "The rest of tebd.py"),
 ])
 def test_evolve_batch_unported_options_raise(option, item):
-    """two_time_anchor raises naming its ROADMAP item.  correlation_site
-    came with the item 'Observables': it adds zz_corr [R, n+1, L], its
-    t=0 row the Neel state's s_1 s_j, and leaves the other traces as they
-    were."""
+    """Both options are ported now, each by the ROADMAP item named beside
+    it, and neither raises.  correlation_site adds zz_corr [R, n+1, L];
+    two_time_anchor adds zz2t_re / zz2t_im [R, n+1, L], the t=0 row of
+    zz2t_re the Neel state's s_1 s_j and of zz2t_im zero.  Either leaves
+    the other traces as they were (LAPACK splits psi alike with and
+    without sz_1 psi beside it)."""
     h, taus, basis = _inputs()
     spec = tsw.SweepSpec(L=L, chi=4, n_periods=1, dtype="float64")
-    if option == "correlation_site":
-        ref = tsw.evolve_batch(h, taus, basis, spec, device="cpu")
-        out = tsw.evolve_batch(h, taus, basis, spec, device="cpu", **{option: 1})
-        assert out["zz_corr"].shape == (R, 2, L)
-        s = 1.0 - 2.0 * basis
-        np.testing.assert_array_equal(out["zz_corr"][:, 0],
-                                      np.broadcast_to(s[1] * s, (R, L)))
-        for k in ref:
-            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, '{item}'"):
-        tsw.evolve_batch(h, taus, basis, spec, device="cpu", **{option: 1})
+    ref = tsw.evolve_batch(h, taus, basis, spec, device="cpu")
+    out = tsw.evolve_batch(h, taus, basis, spec, device="cpu", **{option: 1})
+    new = {"correlation_site": ("zz_corr",),
+           "two_time_anchor": ("zz2t_re", "zz2t_im")}[option]
+    assert set(out) == set(ref) | set(new)
+    s = 1.0 - 2.0 * basis
+    np.testing.assert_array_equal(out[new[0]][:, 0],
+                                  np.broadcast_to(s[1] * s, (R, L)))
+    for k in new:
+        assert out[k].shape == (R, 2, L), k
+    if option == "two_time_anchor":
+        np.testing.assert_array_equal(out["zz2t_im"][:, 0], 0.0)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
 
 
 def test_disorder_ensemble_mesh_raises():

@@ -207,14 +207,20 @@ def test_observables_match_jax():
 
 
 def test_unported_options_raise():
-    """with_states and checkpoint_dir raise naming their ROADMAP item;
+    """checkpoint_dir raises naming its ROADMAP item.  with_states is
+    ported: it adds the measured states on the host, the last of them the
+    final state (and the merged frame refuses it, as in the JAX package).
     correlation_site is ported: it adds zz_corr, the last row of which is
     zz_correlation_profile of the final state."""
     m = _entangling_model(L=4, chi=4)
     psi0 = tmps.create_initial_state(4, "neel", chi=4, dtype=C128, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    psi, tr = tebd.evolve_floquet_scan(psi0, m.gates, 2, TruncParams(),
+                                       with_states=True)
+    assert tr["states"].B.shape == (2,) + psi0.B.shape
+    assert torch.equal(tr["states"].B[-1], psi.B)
+    with pytest.raises(ValueError, match="merged"):
         tebd.evolve_floquet_scan(psi0, m.gates, 2, TruncParams(),
-                                 with_states=True)
+                                 with_states=True, frame="merged")
     psi, tr = tebd.evolve_floquet_scan(psi0, m.gates, 2, TruncParams(),
                                        correlation_site=1)
     assert tr["zz_corr"].shape == (2, 4)

@@ -13,9 +13,9 @@ import torch
 
 import timecrystal_tpu_torch
 from timecrystal_tpu_torch import convert
-from timecrystal_tpu_torch.analysis import figures, phase_diagram
+from timecrystal_tpu_torch.analysis import figures, memory, phase_diagram
 from timecrystal_tpu_torch.core import gates, mps, observables, truncate
-from timecrystal_tpu_torch.dynamics import tdvp
+from timecrystal_tpu_torch.dynamics import ground_state, open_system, tdvp, tebd
 from timecrystal_tpu_torch.models import kicked_ising, long_range
 from timecrystal_tpu_torch.ops import cuda_build
 from timecrystal_tpu_torch.parallel import sweep
@@ -38,6 +38,12 @@ ENTRY_POINTS = [
     phase_diagram.generate_range_diagram, figures.simulate_perfect_dtc,
     figures.simulate_disordered_dtc, figures.simulate_dephasing_dtc,
     figures.simulate_multi_site_dtc, figures.generate_individual_figures,
+    convert.noise_from_numpy, tebd.NearestNeighborModel.trotter_gates,
+    tebd.NearestNeighborModel.bond_terms, ground_state.find_ground_state,
+    open_system.LindbladEvolution, open_system.density_mps_from_product,
+    open_system.vec_identity_mps, memory.memory_rows,
+    memory.scan_memory_lifetime, memory.scan_memory_vs_eps,
+    memory.generate_memory_figure,
 ]
 
 REPO = Path(__file__).resolve().parents[1]
@@ -141,8 +147,14 @@ def test_top_level_exports_the_ported_names():
     """The JAX package's top-level names that the port has are exported
     from the port's package too."""
     expected = {"MPS", "create_initial_state", "TruncParams", "CustomFloquet",
-                "TDVPEvolution", "TDVPFloquetEvolution", "KickedIsingModel"}
+                "TEBDEvolution", "TDVPEvolution", "TDVPFloquetEvolution",
+                "LindbladEvolution", "OpenSystemEvolution", "KickedIsingModel"}
     assert set(timecrystal_tpu_torch.__all__) == expected
     assert timecrystal_tpu_torch.CustomFloquet is sys.modules[
         "timecrystal_tpu_torch.dynamics.tebd"].CustomFloquet
     assert timecrystal_tpu_torch.MPS is mps.MPS
+    assert timecrystal_tpu_torch.LindbladEvolution is open_system.LindbladEvolution
+    from timecrystal_tpu_torch import dynamics
+    assert {"TEBDEvolution", "NearestNeighborModel", "spin_chain_model",
+            "find_ground_state", "imaginary_time_scan", "LindbladEvolution",
+            "OpenSystemEvolution"} <= set(dynamics.__all__)

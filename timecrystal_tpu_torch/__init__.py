@@ -30,14 +30,16 @@ torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
-# the top-level names of the JAX package that the port has
+# the top-level names of the JAX package
 from .core.mps import MPS, create_initial_state  # noqa: E402,F401
 from .core.truncate import TruncParams  # noqa: E402,F401
+from .dynamics.open_system import LindbladEvolution, OpenSystemEvolution  # noqa: E402,F401
 from .dynamics.tdvp import TDVPEvolution, TDVPFloquetEvolution  # noqa: E402,F401
-from .dynamics.tebd import CustomFloquet  # noqa: E402,F401
+from .dynamics.tebd import CustomFloquet, TEBDEvolution  # noqa: E402,F401
 from .models.kicked_ising import KickedIsingModel  # noqa: E402,F401
 
 __all__ = [
     "MPS", "create_initial_state", "TruncParams", "CustomFloquet",
-    "TDVPEvolution", "TDVPFloquetEvolution", "KickedIsingModel",
+    "TEBDEvolution", "TDVPEvolution", "TDVPFloquetEvolution",
+    "LindbladEvolution", "OpenSystemEvolution", "KickedIsingModel",
 ]

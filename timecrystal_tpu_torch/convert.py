@@ -5,6 +5,8 @@ The JAX package stores complex tensors as (re, im) real pairs
 .boundary_gate``, ``MPO.W.re/.im``); the port stores native complex tensors.  These
 functions take and return numpy arrays only -- the caller does the
 ``np.asarray`` on the JAX side -- so this module never imports JAX.
+Superket MPS (local dimension 4, ``dynamics.open_system``) go through the
+MPS functions unchanged.
 """
 
 from __future__ import annotations
@@ -79,3 +81,12 @@ def mpo_to_numpy(mpo: MPO):
     """Port MPO -> (W_re, W_im) numpy pair (rebuild there with
     ``MPO(W=C(W_re, W_im))``)."""
     return complex_to_pair(mpo.W)
+
+
+def noise_from_numpy(normals, device="cuda", dtype=torch.float64) -> torch.Tensor:
+    """The JAX package's dephasing draws -> the port's ``noise`` input of
+    ``dynamics.open_system._evolve_stochastic_scan``.  ``normals``
+    [..., n_periods, L]: per trajectory, the unit normals the JAX scan
+    draws once a period (``key, sub = split(key)``, then ``normal(sub,
+    (L,))``), replayed by the caller on its side."""
+    return torch.as_tensor(np.asarray(normals)).to(dtype=dtype, device=device)

@@ -84,3 +84,29 @@ def phases_to_bond_gates(angles: torch.Tensor, dtype=torch.complex64) -> torch.T
     ph = torch.complex(torch.cos(a), torch.sin(a))
     g = torch.diag_embed(ph)                    # [..., n, dd, dd]
     return g.reshape(*angles.shape[:-1], d, d, d, d)
+
+
+def two_site_hamiltonian(J, h_left, h_right) -> np.ndarray:
+    """Dense 4x4 bond Hamiltonian J ZZ + h_l Z x I + h_r I x Z (host numpy
+    complex128; analysis and parity checks)."""
+    return (J * np.kron(SIGMA_Z, SIGMA_Z)
+            + h_left * np.kron(SIGMA_Z, SIGMA_I)
+            + h_right * np.kron(SIGMA_I, SIGMA_Z))
+
+
+def expm_two_site(H: np.ndarray, t) -> np.ndarray:
+    """expm(-i t H) on the host (scipy, complex128): the generic bond gates
+    of the Suzuki-Trotter TEBD (``t`` complex for imaginary time)."""
+    import scipy.linalg
+
+    return scipy.linalg.expm(-1j * t * np.asarray(H, dtype=np.complex128))
+
+
+def create_time_evolution_gates(J: float, h: float, tau: float,
+                                n_sites: int) -> dict:
+    """The reference's gate-set helper with its intended semantics: a true
+    matrix exponential of the two-site Hamiltonian (the reference
+    exponentiates elementwise) and the exact pi-pulse.  Host numpy."""
+    H = two_site_hamiltonian(J, h, h)
+    return {"ising_evolution": expm_two_site(H, tau),
+            "pi_pulse": np.asarray(-1j * SIGMA_X)}

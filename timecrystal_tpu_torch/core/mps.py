@@ -232,3 +232,48 @@ def apply_one_site_gates(psi: MPS, gates: torch.Tensor) -> MPS:
     else:
         B = torch.einsum("...lpq,...laqb->...lapb", gates, psi.B)
     return MPS(B=B, lam=psi.lam)
+
+
+class HostStates:
+    """A state history kept on the host: ``append`` holds device states
+    until ``chunk`` of them are pending, then moves them in one stacked
+    copy, so a long history never piles up on the card.  ``chunk`` None
+    sizes it from the first state so pending states stay under 256 MiB
+    (at most 32)."""
+
+    def __init__(self, chunk: int | None = None):
+        self.chunk = chunk
+        self._pending: list = []
+        self._host: list = []
+
+    def append(self, psi: MPS) -> None:
+        if self.chunk is None:
+            nbytes = (psi.B.numel() * psi.B.element_size()
+                      + psi.lam.numel() * psi.lam.element_size())
+            self.chunk = int(max(1, min(32, (256 * 2**20) // max(nbytes, 1))))
+        self._pending.append(psi)
+        if len(self._pending) >= self.chunk:
+            self.flush()
+
+    def flush(self) -> None:
+        if self._pending:
+            self._host.append(MPS(
+                B=torch.stack([p.B for p in self._pending]).cpu(),
+                lam=torch.stack([p.lam for p in self._pending]).cpu()))
+            self._pending = []
+
+    def stacked(self) -> MPS:
+        """Every state so far as one host MPS with a leading history axis
+        (None before the first state)."""
+        self.flush()
+        if not self._host:
+            return None
+        return MPS(B=torch.cat([h.B for h in self._host]),
+                   lam=torch.cat([h.lam for h in self._host]))
+
+    def states(self) -> list:
+        """Every state so far, as a list of host MPS."""
+        s = self.stacked()
+        if s is None:
+            return []
+        return [MPS(B=s.B[i], lam=s.lam[i]) for i in range(s.B.shape[0])]

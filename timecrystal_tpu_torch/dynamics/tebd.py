@@ -1,7 +1,8 @@
-"""Floquet TEBD evolution: the period loop, the figure path and the
-chi-staged evolution.
+"""TEBD evolution: the Floquet period loop, the figure path, the
+chi-staged evolution, the two-time correlator and the generic
+Suzuki-Trotter TEBD.
 
-Port of the Floquet part of ``timecrystal_tpu/dynamics/tebd.py``.  JAX's
+Port of ``timecrystal_tpu/dynamics/tebd.py``.  JAX's
 ``lax.scan`` over periods becomes a Python loop; the observables of every
 measurement stay on the device (stacked per chunk) and reach the host once
 per chunk, not once per period.
@@ -17,11 +18,12 @@ import numpy as np
 import torch
 
 from ..core import gates as G
-from ..core.mps import (MPS, entanglement_entropy, expectation_one_site,
+from ..core.mps import (MPS, HostStates, apply_sz, bond_dimensions,
+                        entanglement_entropy, expectation_one_site,
                         max_bond_dimension, overlap)
-from ..core.observables import (add_derived_magnetization,
+from ..core.observables import (add_derived_magnetization, cross_sz_profile,
                                 zz_correlation_profile)
-from ..core.truncate import PROJECTED_SVD_METHODS, TruncParams
+from ..core.truncate import PROJECTED_SVD_METHODS, TruncParams, apply_bond_gates
 from ..models.kicked_ising import (FloquetGates, floquet_period,
                                    floquet_period_merged, ising_half_step,
                                    ising_half_step_inverse)
@@ -48,8 +50,9 @@ def _measure(psi: MPS, ref: MPS, sz_op: torch.Tensor, err: torch.Tensor,
     return out
 
 
-def _trace_keys(correlation_site: int | None) -> tuple:
-    return TRACE_KEYS + (() if correlation_site is None else ("zz_corr",))
+def _trace_keys(correlation_site: int | None, two_time: bool = False) -> tuple:
+    return (TRACE_KEYS + (() if correlation_site is None else ("zz_corr",))
+            + (("zz2t_re", "zz2t_im") if two_time else ()))
 
 
 def to_host(traces: dict) -> dict:
@@ -58,11 +61,37 @@ def to_host(traces: dict) -> dict:
             for k, v in traces.items()}
 
 
+def _stack_traces(outs: list, empty, time_dim: int) -> dict:
+    """Per-measurement dicts of device tensors -> one tensor per key, the
+    measurements on axis ``time_dim``; ``empty()`` gives one measurement's
+    shapes when there is none (zero periods)."""
+    rows = outs or [empty()]
+    return {k: torch.stack([o[k] for o in rows], time_dim).narrow(
+        time_dim, 0, len(outs)) for k in rows[0]}
+
+
+def _pair(psi: MPS, phi: MPS) -> MPS:
+    """psi and phi on one new leading axis: one SVD call serves both."""
+    return MPS(B=torch.stack([psi.B, phi.B]), lam=torch.stack([psi.lam, phi.lam]))
+
+
+def _part(pair: MPS, i: int) -> MPS:
+    return MPS(B=pair.B[i], lam=pair.lam[i])
+
+
+def _measure_every(n_periods: int, measure_every: int) -> int:
+    m = int(measure_every)
+    if m < 1 or n_periods % m != 0:
+        raise ValueError(f"measure_every={m} must divide n_periods={n_periods}")
+    return m
+
+
 def evolve_floquet_scan(psi0: MPS, gates: FloquetGates, n_periods: int,
                         tp: TruncParams, with_states: bool = False,
                         frame: str = "strict", ref_state: MPS | None = None,
                         measure_every: int = 1, measure_phase: int = -1,
-                        correlation_site: int | None = None):
+                        correlation_site: int | None = None,
+                        two_time_anchor: int | None = None):
     """n_periods of U_F with observables measured in-loop.
 
     Returns (final MPS, traces) with device tensors per measurement, the
@@ -84,49 +113,127 @@ def evolve_floquet_scan(psi0: MPS, gates: FloquetGates, n_periods: int,
     <sigma^z_i sigma^z_j> profile of every measurement
     (``core.observables.zz_correlation_profile``), exact in both frames (H
     is z-diagonal).
+
+    ``with_states=True`` (strict frame only) adds ``states``: the MPS of
+    every measurement as one host MPS with the measurements on a leading
+    axis, moved off the card in chunks (``core.mps.HostStates``).
+
+    ``two_time_anchor=i`` (the batched ensemble's option) also evolves
+    sigma^z_i psi0 beside psi0, the pair on one leading axis, and adds
+    ``zz2t_re`` / ``zz2t_im`` [..., n_meas, L], the two-time correlator
+    <sz_i(0) sz_j(t)> (``core.observables.cross_sz_profile``); every other
+    trace, trunc_err included, is psi's.
     """
-    if with_states:
-        raise NotImplementedError("with_states is not ported yet (ROADMAP.md "
-                                  "queue 1, 'The rest of tebd.py')")
     sz_op = G.pauli_c("z", psi0.dtype, psi0.device)
     if ref_state is None:
         ref_state = psi0
-    m = int(measure_every)
-    if m < 1 or n_periods % m != 0:
-        raise ValueError(f"measure_every={m} must divide n_periods={n_periods}")
+    m = _measure_every(n_periods, measure_every)
     n_meas = n_periods // m
     phase = (m - 1) if measure_phase < 0 else int(measure_phase)
     if not 0 <= phase < m:
         raise ValueError(f"measure_phase={measure_phase} outside block of {m}")
     time_dim = len(psi0.lead)
+    two_time = two_time_anchor is not None
+    start = _pair(psi0, apply_sz(psi0, two_time_anchor)) if two_time else psi0
 
     if frame == "merged":
+        if with_states:
+            raise ValueError("frame='merged' cannot return state history")
         step = floquet_period_merged
         ref, _ = ising_half_step(ref_state, gates, tp)
-        psi, e0 = ising_half_step(psi0, gates, tp)
+        s, e0 = ising_half_step(start, gates, tp)
+        if two_time:
+            e0 = e0[0]
     elif frame == "strict":
         step = floquet_period
-        ref, psi, e0 = ref_state, psi0, None
+        ref, s, e0 = ref_state, start, None
     else:
         raise ValueError(f"unknown frame: {frame}")
 
+    def measure(s, err):
+        psi = _part(s, 0) if two_time else s
+        out = _measure(psi, ref, sz_op, err[0] if two_time else err,
+                       correlation_site)
+        if two_time:
+            c = cross_sz_profile(_part(s, 1), psi)
+            out["zz2t_re"], out["zz2t_im"] = c.real, c.imag
+        return out
+
+    history = HostStates() if with_states else None
     outs = []
     for _ in range(n_meas):
         for i in range(m):
-            psi, e = step(psi, gates, tp)
+            s, e = step(s, gates, tp)
             if i == phase:
-                outs.append(_measure(psi, ref, sz_op, e, correlation_site))
-    if not outs:            # n_periods == 0: empty traces of the right shapes
-        outs = [_measure(psi, ref, sz_op, psi.lam.new_zeros(psi.lead),
-                         correlation_site)]
-        n_meas = 0
-    traces = {k: torch.stack([o[k] for o in outs], time_dim).narrow(
-        time_dim, 0, n_meas) for k in _trace_keys(correlation_site)}
+                outs.append(measure(s, e))
+                if history is not None:
+                    history.append(_part(s, 0) if two_time else s)
+    traces = _stack_traces(outs, lambda: measure(s, s.lam.new_zeros(
+        s.lead)), time_dim)
+    psi = _part(s, 0) if two_time else s
     if frame == "merged":
         psi, e_exit = ising_half_step_inverse(psi, gates, tp)
         # frame-change bookkeeping error, kept out of the per-period trace;
         # the chi-staged evolutions fold it into their saturation signal
         traces["trunc_err_boundary"] = e0 + e_exit
+    else:
+        traces["trunc_err_boundary"] = psi0.lam.new_zeros(psi0.lead)
+    if history is not None:
+        traces["states"] = history.stacked() if n_meas else MPS(
+            B=psi0.B.new_zeros((0,) + psi0.B.shape).cpu(),
+            lam=psi0.lam.new_zeros((0,) + psi0.lam.shape).cpu())
+    return psi, traces
+
+
+def evolve_two_time_zz(psi0: MPS, gates: FloquetGates, n_periods: int,
+                       tp: TruncParams, anchor: int, frame: str = "strict",
+                       measure_every: int = 1):
+    """Two-time correlator traces C(r, t) = <sz_anchor(0) sz_j(t)>.
+
+    Evolves |psi(t)> = U^t |psi0> and |phi(t)> = U^t sz_anchor |psi0> as
+    one pair on a leading axis (one SVD call a layer serves both) and reads
+    <phi(t)| sz_j |psi(t)> for every j (``core.observables.
+    cross_sz_profile``).  In a time crystal the real part alternates at
+    f_drive/2, so its ``dynamic_structure_factor`` peaks at (k = pi,
+    f = f_drive/2).  ``frame='merged'`` is exact for this readout (the
+    frame change is z-diagonal).
+
+    Returns (psi_final, traces): zz2t_re / zz2t_im [..., n_meas, L],
+    max_chi [..., n_meas] (psi's), trunc_err [..., n_meas] (psi's plus
+    phi's, summed over the block's periods) and trunc_err_boundary [...].
+    The t=0 row, the real equal-time profile zz_correlation_profile(psi0,
+    anchor), is the caller's to prepend.
+    """
+    m = _measure_every(n_periods, measure_every)
+    time_dim = len(psi0.lead)
+    s = _pair(psi0, apply_sz(psi0, anchor))
+    if frame == "merged":
+        step = floquet_period_merged
+        s, e_in = ising_half_step(s, gates, tp)
+    elif frame == "strict":
+        step = floquet_period
+    else:
+        raise ValueError(f"unknown frame: {frame}")
+
+    def measure(s, err):
+        psi = _part(s, 0)
+        c = cross_sz_profile(_part(s, 1), psi)
+        return dict(zz2t_re=c.real, zz2t_im=c.imag,
+                    max_chi=max_bond_dimension(psi), trunc_err=err)
+
+    outs = []
+    for _ in range(n_periods // m):
+        e_tot = psi0.lam.new_zeros(psi0.lead)
+        for _ in range(m):
+            s, e = step(s, gates, tp)
+            e_tot = e_tot + e[0] + e[1]
+        outs.append(measure(s, e_tot))
+    traces = _stack_traces(outs, lambda: measure(
+        s, psi0.lam.new_zeros(psi0.lead)), time_dim)
+    psi = _part(s, 0)
+    if frame == "merged":
+        psi, e_exit = ising_half_step_inverse(psi, gates, tp)
+        traces["trunc_err_boundary"] = e_in[0] + e_in[1] + e_exit
     else:
         traces["trunc_err_boundary"] = psi0.lam.new_zeros(psi0.lead)
     return psi, traces
@@ -199,6 +306,45 @@ class CustomFloquet:
             "truncation_errors": traces["trunc_err"].tolist(),
         }
         return traces, times, info
+
+    def evolve_floquet(self, psi_initial: MPS, n_periods: int,
+                       measure_every: int = 1) -> Tuple[List[MPS], List[float], Dict]:
+        """The state history (states, times, info): psi_initial, then the
+        state after periods 1, m+1, 2m+1, ... (m = ``measure_every``), each
+        a host MPS (moved off the card in chunks).  When m divides
+        n_periods only those states are taken; otherwise every period's is
+        and the list is subsampled.  ``evolve_floquet_traces`` keeps no
+        states."""
+        start = time.perf_counter()
+        m = int(measure_every)
+        in_scan = m > 1 and n_periods % m == 0
+        _, tr = evolve_floquet_scan(
+            psi_initial, self.model.gates, n_periods, self.trunc_params,
+            with_states=True, measure_every=m if in_scan else 1,
+            measure_phase=0 if in_scan else -1)
+        max_chi = tr["max_chi"].cpu().numpy()
+        wall_time = time.perf_counter() - start
+
+        stacked = tr["states"]
+        states, times = [psi_initial], [0.0]
+        bond_dims = [int(max_bond_dimension(psi_initial))]
+        if in_scan:     # stored entry j == the state after period j*m + 1
+            pairs = [(j, j * m) for j in range(n_periods // m)]
+        else:
+            pairs = [(p, p) for p in range(0, n_periods, m)]
+        for j, p in pairs:
+            states.append(MPS(B=stacked.B[j], lam=stacked.lam[j]))
+            times.append((p + 1) * 2 * self.model.tau)
+            bond_dims.append(int(max_chi[j]))
+        info = {
+            "wall_time": wall_time,
+            "bond_dimensions": bond_dims,
+            "periods_per_second": (n_periods / wall_time if wall_time > 0
+                                   else float("inf")),
+            "final_bond_dim": bond_dims[-1],
+            "n_periods": n_periods,
+        }
+        return states, times, info
 
 
 def _next_chi(chi: int, cap: int, growth: float) -> int:
@@ -350,3 +496,188 @@ def evolve_floquet_auto(model_kwargs: dict, state_type: str, n_periods: int,
               "escalations), max_chi %d", model.n_sites, n_periods, chi,
               len(escalations), max(bond_dims), extra={"run_info": info})
     return traces, times, info, model
+
+
+# ---------------------------------------------------------------------------
+# Generic nearest-neighbour Suzuki-Trotter TEBD
+# ---------------------------------------------------------------------------
+
+class NearestNeighborModel:
+    """A chain Hamiltonian H = sum_b H_b, H_b on sites (b, b+1): the dense
+    bond Hamiltonians [L-1, d*d, d*d] (host numpy, onsite terms absorbed
+    into the bonds)."""
+
+    def __init__(self, bond_H: np.ndarray, d: int = 2):
+        self.bond_H = np.asarray(bond_H)
+        self.d = d
+        self.L = self.bond_H.shape[0] + 1
+
+    def trotter_gates(self, dt: float, dtype=torch.complex64, imag: bool = False,
+                      device="cuda") -> torch.Tensor:
+        """exp(-i dt H_b) of every bond, [L-1, d, d, d, d] on ``device``
+        (scipy expm on the host in complex128, then cast); ``imag=True``
+        gives the imaginary-time gates exp(-dt H_b) of
+        ``dynamics.ground_state``."""
+        t = -1j * dt if imag else dt
+        g = np.stack([G.expm_two_site(H, t) for H in self.bond_H])
+        d = self.d
+        return G.gate_from_numpy(g.reshape(-1, d, d, d, d), dtype=dtype,
+                                 device=device)
+
+    def bond_terms(self, dtype=torch.complex64, device="cuda") -> torch.Tensor:
+        """The bond Hamiltonians as [L-1, d, d, d, d] in the gate index
+        convention (``core.observables.bond_energies``)."""
+        d = self.d
+        return G.gate_from_numpy(self.bond_H.reshape(-1, d, d, d, d),
+                                 dtype=dtype, device=device)
+
+
+def spin_chain_model(L: int, Jx=0.0, Jy=0.0, Jz=1.0, hx=0.0, hz=0.0,
+                     hz_fields: np.ndarray | None = None) -> NearestNeighborModel:
+    """Spin-1/2 chain H = sum Jx SxSx + Jy SySy + Jz SzSz + hx Sx + hz Sz,
+    S = sigma/2.  Onsite terms are split half and half onto the adjacent
+    bonds; an edge site puts its whole term on its one bond."""
+    Sx, Sy, Sz = G.SIGMA_X / 2, G.SIGMA_Y / 2, G.SIGMA_Z / 2
+    eye = np.eye(2, dtype=complex)
+    hzv = (np.full(L, hz, dtype=float) if hz_fields is None
+           else np.asarray(hz_fields))
+    bonds = []
+    for b in range(L - 1):
+        H = Jx * np.kron(Sx, Sx) + Jy * np.kron(Sy, Sy) + Jz * np.kron(Sz, Sz)
+        wl = 1.0 if b == 0 else 0.5
+        wr = 1.0 if b == L - 2 else 0.5
+        H += wl * (hx * np.kron(Sx, eye) + hzv[b] * np.kron(Sz, eye))
+        H += wr * (hx * np.kron(eye, Sx) + hzv[b + 1] * np.kron(eye, Sz))
+        bonds.append(H)
+    return NearestNeighborModel(np.stack(bonds))
+
+
+def trotter2_scan(psi0: MPS, gates_half: torch.Tensor, gates_full: torch.Tensor,
+                  n_steps: int, tp: TruncParams):
+    """Second-order Suzuki-Trotter steps, even(dt/2) odd(dt) even(dt/2),
+    with the entropies, max_chi and truncation error of every step kept on
+    the device (no host read per step).  Returns (psi, traces) with
+    entropies [..., n_steps, L+1], max_chi and trunc_err [..., n_steps]."""
+    psi, outs = psi0, []
+
+    def measure(psi, err):
+        return dict(entropies=entanglement_entropy(psi),
+                    max_chi=max_bond_dimension(psi), trunc_err=err)
+
+    for _ in range(n_steps):
+        psi, e1 = apply_bond_gates(psi, gates_half, 0, tp)
+        psi, e2 = apply_bond_gates(psi, gates_full, 1, tp)
+        psi, e3 = apply_bond_gates(psi, gates_half, 0, tp)
+        outs.append(measure(psi, e1 + e2 + e3))
+    return psi, _stack_traces(outs, lambda: measure(
+        psi, psi.lam.new_zeros(psi.lead)), len(psi0.lead))
+
+
+class TEBDEvolution:
+    """Order-2 Trotter TEBD of a ``NearestNeighborModel``; a
+    ``KickedIsingModel`` serves ``evolve_floquet_period``."""
+
+    def __init__(self, model, dt: float = 0.1, max_chi: int = 100,
+                 trunc_params: dict | TruncParams | None = None):
+        self.model = model
+        self.dt = dt
+        self.max_chi = max_chi
+        if isinstance(trunc_params, TruncParams):
+            self.trunc_params = trunc_params
+        elif trunc_params is None:
+            self.trunc_params = TruncParams(chi_max=max_chi, svd_min=1e-12,
+                                            trunc_cut=1e-10)
+        else:
+            d = dict(trunc_params)
+            d.setdefault("chi_max", max_chi)
+            self.trunc_params = TruncParams.from_dict(d)
+
+    def _gates(self, psi: MPS):
+        return (self.model.trotter_gates(self.dt / 2, dtype=psi.dtype,
+                                         device=psi.device),
+                self.model.trotter_gates(self.dt, dtype=psi.dtype,
+                                         device=psi.device))
+
+    def evolve(self, psi_initial: MPS, total_time: float,
+               observe_every: int = 1) -> Tuple[List[MPS], List[float], Dict]:
+        """(states, times, info): psi_initial, then the state after every
+        ``observe_every``-th step as host MPS (moved off the card in
+        chunks); info has wall_time, bond_dimensions and
+        entanglement_entropies per stored state, truncation_errors (the
+        sum over steps), final_bond_dim and n_steps."""
+        n_steps = int(total_time / self.dt)
+        gates_half, gates_full = self._gates(psi_initial)
+        start = time.perf_counter()
+        history = HostStates()
+        times = [0.0]
+        dims = [bond_dimensions(psi_initial)]
+        ents = [entanglement_entropy(psi_initial)]
+        errs = []
+        psi = psi_initial
+        for step in range(n_steps):
+            psi, tr = trotter2_scan(psi, gates_half, gates_full, 1,
+                                    self.trunc_params)
+            if step % observe_every == 0:
+                history.append(psi)
+                times.append((step + 1) * self.dt)
+                dims.append(bond_dimensions(psi))
+                ents.append(tr["entropies"][..., 0, :])
+            errs.append(tr["trunc_err"][..., 0])
+        states = [psi_initial] + history.states()
+        dims = torch.stack(dims).cpu().numpy()
+        ents = torch.stack(ents).cpu().numpy()
+        trunc = float(torch.stack(errs).sum()) if errs else 0.0
+        wall_time = time.perf_counter() - start
+        info = {
+            "wall_time": wall_time,
+            "bond_dimensions": list(dims),
+            "entanglement_entropies": list(ents),
+            "truncation_errors": trunc,
+            "final_bond_dim": int(bond_dimensions(psi).max()),
+            "n_steps": n_steps,
+        }
+        return states, times, info
+
+    def evolve_traces(self, psi_initial: MPS, total_time: float) -> Tuple[Dict, Dict]:
+        """All steps with traces only: (host traces of ``trotter2_scan``,
+        info with wall_time, n_steps, steps_per_second)."""
+        n_steps = int(total_time / self.dt)
+        gates_half, gates_full = self._gates(psi_initial)
+        start = time.perf_counter()
+        _, tr = trotter2_scan(psi_initial, gates_half, gates_full, n_steps,
+                              self.trunc_params)
+        tr = to_host(tr)          # waits for the device
+        wall_time = time.perf_counter() - start
+        info = {"wall_time": wall_time, "n_steps": n_steps,
+                "steps_per_second": (n_steps / wall_time if wall_time > 0
+                                     else float("inf"))}
+        return tr, info
+
+    def real_time_evolution(self, psi_initial: MPS, hamiltonian,
+                            total_time: float, observe_every: int = 1):
+        """``evolve`` (the reference's signature; ``hamiltonian`` unused)."""
+        return self.evolve(psi_initial, total_time, observe_every)
+
+    def suzuki_trotter_gates(self, hamiltonian_terms: Dict,
+                             dt: float) -> List[np.ndarray]:
+        """exp(-i dt H_term) of every dense term but 'single_site_terms'
+        (host numpy)."""
+        return [G.expm_two_site(np.asarray(op), dt)
+                for name, op in hamiltonian_terms.items()
+                if name != "single_site_terms" and isinstance(op, np.ndarray)]
+
+    def benchmark_performance(self, psi_initial: MPS, n_steps: int = 100) -> Dict:
+        """wall_time, steps_per_second, final_bond_dim, memory_usage and the
+        last step's truncation_error of ``evolve_traces``."""
+        tr, info = self.evolve_traces(psi_initial, n_steps * self.dt)
+        return {
+            "wall_time": info["wall_time"],
+            "steps_per_second": info["steps_per_second"],
+            "final_bond_dim": int(tr["max_chi"][-1]),
+            "memory_usage": float(np.sum(tr["max_chi"]) * 8 / 1024**2),
+            "truncation_error": float(tr["trunc_err"][-1]),
+        }
+
+    def evolve_floquet_period(self, psi: MPS) -> MPS:
+        """One Floquet period of the model (a ``KickedIsingModel``)."""
+        return self.model.floquet_step(psi, self.trunc_params)

@@ -5,13 +5,13 @@
     python -m timecrystal_tpu_torch --figures-only  # only figures A-D
     python -m timecrystal_tpu_torch --drive-diagram # eps x h/J melting diagram
     python -m timecrystal_tpu_torch --range-diagram # A2T vs interaction range
+    python -m timecrystal_tpu_torch --memory-diagram  # DTC memory lifetimes
     python -m timecrystal_tpu_torch --cpu ...       # on the CPU (complex128)
 
 The flags of the JAX package's ``main.py``.  Without ``--cpu`` the run
 needs a CUDA device and stops with an error when there is none; ``--cpu``
 runs on the CPU in complex128.  Figures are written to ./figures and need
-matplotlib.  ``--memory-diagram`` needs the open-system dynamics, which is
-not ported yet.  A failed run exits with status 1.
+matplotlib.  A failed run exits with status 1.
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ Examples:
                            "alpha (J/r^alpha couplings, TDVP-integrated)")
     mode.add_argument("--memory-diagram", action="store_true",
                       help="Generate the DTC-as-quantum-memory lifetime "
-                           "figure (needs the open-system dynamics, not "
-                           "ported yet)")
+                           "figure (stored-bit lifetime vs dephasing rate "
+                           "and pulse error)")
     parser.add_argument("--config", type=str, default=None,
                         help="Path to configuration file (default: ./config.txt)")
     parser.add_argument("--synthetic-multisite", action="store_true",
@@ -108,10 +108,6 @@ def run_device(cpu: bool):
 
 def main(argv=None) -> None:
     args = parse_arguments(argv)
-    if args.memory_diagram:
-        raise NotImplementedError("--memory-diagram needs the open-system "
-                                  "dynamics, not ported yet (ROADMAP.md queue "
-                                  "1, 'Other dynamics')")
     device, dtype = run_device(args.cpu)
     run = dict(device=device, dtype=dtype)
 
@@ -127,13 +123,14 @@ def main(argv=None) -> None:
         sys.exit(1)
     print(f"Loaded {len(params)} parameters")
 
-    solo = args.drive_diagram or args.range_diagram
+    solo = args.drive_diagram or args.range_diagram or args.memory_diagram
     generate_phase = not (args.figures_only or solo)
     generate_figures = not (args.phase_only or solo)
     mode = ("Phase diagram only" if args.phase_only else
             "Individual figures A-D only" if args.figures_only else
             "Drive-strength diagram only" if args.drive_diagram else
             "Interaction-range diagram only" if args.range_diagram else
+            "Memory-lifetime figure only" if args.memory_diagram else
             "Both phase diagram and individual figures A-D")
     print(f"Mode: {mode}")
 
@@ -150,6 +147,11 @@ def main(argv=None) -> None:
         if args.range_diagram:
             from .analysis.phase_diagram import generate_range_diagram
             generate_range_diagram(params, **run)
+            plt.close("all")
+
+        if args.memory_diagram:
+            from .analysis.memory import generate_memory_figure
+            generate_memory_figure(params, **run)
             plt.close("all")
 
         if generate_phase:

@@ -224,3 +224,72 @@ class KickedIsingModel:
         """One Floquet period (periodic chains include the boundary bond)."""
         psi_new, _ = floquet_period(psi, self.gates, _tp_from(trunc_params))
         return psi_new
+
+    def evolve(self, psi_initial: MPS, n_steps: int,
+               trunc_params: dict | TruncParams | None = None,
+               fetch_every: int | None = None):
+        """(states, times): psi_initial, then the state after every period
+        as a host MPS.  States leave the card in chunks of ``fetch_every``
+        (one stacked copy each; None keeps the pending states under 256
+        MiB, ``core.mps.HostStates``), so a long history never piles up on
+        the card; the chunk size changes nothing in the states.
+        ``dynamics.tebd.CustomFloquet.evolve_floquet_traces`` keeps no
+        states."""
+        from ..core.mps import HostStates
+
+        tp = _tp_from(trunc_params)
+        history = HostStates(fetch_every)
+        times = [0.0]
+        psi = psi_initial
+        for step in range(n_steps):
+            psi, _ = floquet_period(psi, self.gates, tp)
+            history.append(psi)
+            times.append((step + 1) * 2 * self.tau)    # a period is 2 tau
+        return [psi_initial] + history.states(), times
+
+    def get_hamiltonian_terms(self) -> dict:
+        """The model's terms for analysis (host numpy): J, h_fields, tau, the
+        kick actually applied (-i sigma_x at theta = pi, else
+        exp(-i theta/2 sigma_x)) and the half-step bond gates
+        exp(-i tau/2 H_b), the boundary bond's last for periodic chains
+        (L = 2 included: a two-site ring has two bonds)."""
+        ising_gates = [
+            G.expm_two_site(G.two_site_hamiltonian(
+                self.J, self.h_fields[i], self.h_fields[i + 1]), self.tau / 2.0)
+            for i in range(self.n_sites - 1)]
+        if self.bc == "periodic":
+            ising_gates.append(G.expm_two_site(G.two_site_hamiltonian(
+                self.J, self.h_fields[-1], self.h_fields[0]), self.tau / 2.0))
+        if abs(self.theta - np.pi) < 1e-15:
+            pulse = np.asarray(-1j * G.SIGMA_X)
+        else:
+            th = float(self.theta)
+            pulse = np.cos(th / 2) * np.eye(2) - 1j * np.sin(th / 2) * G.SIGMA_X
+        return {"J": self.J, "h_fields": self.h_fields, "tau": self.tau,
+                "pi_pulse": pulse, "ising_gates": ising_gates}
+
+    def calculate_phase_diagram_point(self, psi_initial: MPS, n_steps: int = 200,
+                                      trunc_params: dict | None = None) -> dict:
+        """One phase-diagram point's observables by
+        ``CustomFloquet.evolve_floquet_traces``.  Kept on purpose from the
+        reference: the physical drive period 2 tau goes into
+        ``subharmonic_response``, whose fftfreq has unit (per-sample)
+        spacing, so for tau != 0.5 its 'fundamental' and 'subharmonic' bins
+        are off the true ones (``analysis.detection`` bins A2T correctly)."""
+        from ..core import observables as obs
+        from ..dynamics.tebd import CustomFloquet
+
+        traces, _, info = CustomFloquet(self, trunc_params).evolve_floquet_traces(
+            psi_initial, n_steps)
+        fund_amp, subharm_amp = obs.subharmonic_response(
+            traces["magnetization"], 2 * self.tau)
+        sz_final = traces["sz_sites"][-1]
+        mag_a, mag_b = np.mean(sz_final[0::2]), np.mean(sz_final[1::2])
+        return {
+            "loschmidt_echo_final": float(traces["loschmidt_echo"][-1]),
+            "subharmonic_amplitude": float(subharm_amp),
+            "fundamental_amplitude": float(fund_amp),
+            "order_parameter": float(abs(mag_a - mag_b)),
+            "max_bond_dimension": int(info["final_bond_dim"]),
+            "final_magnetization": float(traces["magnetization"][-1]),
+        }

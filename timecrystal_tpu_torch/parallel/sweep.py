@@ -53,8 +53,7 @@ def _basis_indices(L: int, state_type: str) -> np.ndarray:
 def _refuse_unported(**options) -> None:
     """Raise NotImplementedError for an option of the JAX package's
     ensembles that is not ported yet, naming its ROADMAP.md item."""
-    items = {"checkpoint_dir": "Utilities", "mesh": "Scale-out",
-             "two_time_anchor": "The rest of tebd.py"}
+    items = {"checkpoint_dir": "Utilities", "mesh": "Scale-out"}
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md "
@@ -62,12 +61,14 @@ def _refuse_unported(**options) -> None:
 
 
 def _with_initial_row(cat: dict, basis: np.ndarray,
-                      correlation_site: int | None = None) -> dict:
+                      correlation_site: int | None = None,
+                      two_time_anchor: int | None = None) -> dict:
     """The ensemble traces [R, n_periods+1, ...] from the per-period host
     traces ``cat`` [R, n_periods, ...] (``tebd._trace_keys``): the t=0 row
     of the product state ``basis`` prepended (sz = 1 - 2 basis, LE and
-    max_chi 1, entropy and trunc_err 0, zz_corr s_i s_j), the mid-chain
-    entropy kept, and the magnetizations derived."""
+    max_chi 1, entropy and trunc_err 0, zz_corr s_i s_j, zz2t_re the same
+    equal-time profile at the anchor and zz2t_im 0), the mid-chain entropy
+    kept, and the magnetizations derived."""
     R, _, L = cat["sz_sites"].shape
     sz0 = np.broadcast_to((1.0 - 2.0 * basis).astype(cat["sz_sites"].dtype),
                           (R, L))
@@ -85,14 +86,25 @@ def _with_initial_row(cat: dict, basis: np.ndarray,
              cat["entropies"][:, :, L // 2]], axis=1),
         "trunc_err": first("trunc_err", 0),
     }
-    if correlation_site is not None:
+    def profile(i, dtype):
         # zz_correlation_profile of the product state: s_i s_j, exactly 1
         # at j == i (s = 1 - 2 basis)
-        s = (1.0 - 2.0 * basis).astype(cat["zz_corr"].dtype)
-        zz0 = s[correlation_site] * s
-        zz0[correlation_site] = 1.0
+        s = (1.0 - 2.0 * basis).astype(dtype)
+        zz0 = s[i] * s
+        zz0[i] = 1.0
+        return np.broadcast_to(zz0, (R, 1, L))
+
+    if correlation_site is not None:
         traces["zz_corr"] = np.concatenate(
-            [np.broadcast_to(zz0, (R, 1, L)), cat["zz_corr"]], axis=1)
+            [profile(correlation_site, cat["zz_corr"].dtype), cat["zz_corr"]],
+            axis=1)
+    if two_time_anchor is not None:
+        # at t=0 the two-time and equal-time profiles coincide (real)
+        dt = cat["zz2t_re"].dtype
+        traces["zz2t_re"] = np.concatenate(
+            [profile(two_time_anchor, dt), cat["zz2t_re"]], axis=1)
+        traces["zz2t_im"] = np.concatenate(
+            [np.zeros((R, 1, L), dt), cat["zz2t_im"]], axis=1)
     return add_derived_magnetization(traces, L)
 
 
@@ -134,8 +146,10 @@ def evolve_batch(h_fields, taus, basis_indices, spec: SweepSpec,
     sz_sites, loschmidt_echo, max_chi, entropy_mid, trunc_err,
     magnetization, staggered_magnetization; with ``correlation_site=i``
     also zz_corr [R, n_periods+1, L], the <sz_i sz_j> profile of every
-    period."""
-    _refuse_unported(two_time_anchor=two_time_anchor)
+    period; with ``two_time_anchor=i`` also zz2t_re / zz2t_im [R,
+    n_periods+1, L], the two-time correlator <sz_i(0) sz_j(t)>: sz_i psi0
+    evolves beside psi0 on one leading axis (one SVD call serves both, 2x
+    the matrices), and every other trace, trunc_err included, is psi's."""
     device = torch.device(device)
     cdtype, rdtype = _working_dtypes(spec)
     h = torch.as_tensor(h_fields, dtype=rdtype, device=device)
@@ -150,10 +164,11 @@ def evolve_batch(h_fields, taus, basis_indices, spec: SweepSpec,
                          dtype=cdtype, device=device)
     _, tr = evolve_floquet_scan(psi0, gates, spec.n_periods,
                                 _stage_tp(spec.tp, device), frame=spec.frame,
-                                correlation_site=correlation_site)
-    return _with_initial_row(
-        to_host({k: tr[k] for k in _trace_keys(correlation_site)}), basis,
-        correlation_site)
+                                correlation_site=correlation_site,
+                                two_time_anchor=two_time_anchor)
+    keys = _trace_keys(correlation_site, two_time_anchor is not None)
+    return _with_initial_row(to_host({k: tr[k] for k in keys}), basis,
+                             correlation_site, two_time_anchor)
 
 
 def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
@@ -273,15 +288,20 @@ def disorder_ensemble(generator: torch.Generator, n_realizations: int,
                       chi_start: int = 32, chunk_periods: int = 5,
                       cap_svd_method: str | None = None,
                       correlation_site: int | None = None,
+                      two_time_anchor: int | None = None,
                       device="cuda") -> dict:
     """Batched disorder ensemble: fields [R, L] ~ U[-h, h] drawn from
     ``generator`` (``draw_disorder_batch``; the JAX package draws them from
     a JAX key, so the two packages' fields differ), one ``tau`` for all,
     evolved by ``evolve_batch`` or, with ``staged=True``, by the chi-staged
     ``evolve_batch_auto`` (``chi_start``, ``chunk_periods``,
-    ``cap_svd_method``), either with ``correlation_site``.  Returns the
-    traces dict of either."""
+    ``cap_svd_method``), either with ``correlation_site``;
+    ``two_time_anchor`` (``evolve_batch``'s) takes the fixed-chi path only.
+    Returns the traces dict of either."""
     _refuse_unported(mesh=mesh)
+    if staged and two_time_anchor is not None:
+        raise ValueError("two_time_anchor takes the fixed-chi ensemble "
+                         "(staged=False)")
     h = draw_disorder_batch(generator, n_realizations, spec.L, h_disorder)
     taus = np.full(n_realizations, tau)
     basis = _basis_indices(spec.L, state_type)
@@ -294,7 +314,8 @@ def disorder_ensemble(generator: torch.Generator, n_realizations: int,
                                       device=device)
         return traces
     return evolve_batch(h, taus, basis, spec,
-                        correlation_site=correlation_site, device=device)
+                        correlation_site=correlation_site,
+                        two_time_anchor=two_time_anchor, device=device)
 
 
 def phase_grid_batch(h_over_J_values, T_J_values, spec: SweepSpec,
