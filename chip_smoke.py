@@ -61,7 +61,17 @@ tests/exact_reference.py.  Phases:
      baseline (L=12, 100 periods) against complex128 and the channel average
      of 600 trajectories, and the two-time correlator of four phase-grid
      points against complex128 with its structure-factor peak;
- 11. the long-range TDVP path against the dense oracle (L=10, chi=32, 6
+ 11. kill and resume, scale-out and profiling: child processes running
+     the CONFIG window (evolve_batch_auto), Figure A's chain
+     (evolve_floquet_auto) and the phase grid in eight chunks
+     (sweep_phase_grid) through checkpoint_dir are sent SIGKILL mid-run and
+     resumed here, against uninterrupted runs; two Gloo ranks on the card run
+     evolve_batch_multihost and the staged evolution with per-rank
+     checkpoints (killed and resumed) on the phase grid's batch, and one
+     CONFIG chain split 20 + 20 (evolve_floquet_sharded), each against the
+     same work in one process; PhaseTimer and device_trace on one window
+     chunk;
+ 12. the long-range TDVP path against the dense oracle (L=10, chi=32, 6
      periods, theta = pi and the entangling 0.92 pi, the latter also against
      a complex128 CPU run of the same TDVP), then at the interaction-range
      diagram's widths (L=12, chi=48, 10 periods, alpha in {1.5, None};
@@ -841,32 +851,48 @@ def _with_sync_count(fn):
     return out, sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
+def _window_problem():
+    """(h_fields [R, L], spec) of bench.py's CONFIG window."""
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.models.kicked_ising import draw_disorder_reference
+    from timecrystal_tpu_torch.parallel.sweep import SweepSpec
+
+    c = CONFIG
+    h = np.stack([draw_disorder_reference(c["L"], c["h"], c["seed"] + r)
+                  for r in range(c["R"])])
+    spec = SweepSpec(L=c["L"], chi=c["chi"], n_periods=c["n_periods"],
+                     theta=c["theta_frac"] * float(np.pi),
+                     tp=TruncParams(chi_max=0, svd_min=c["svd_min"]),
+                     dtype="float32", frame="merged")
+    return h, spec
+
+
+def _window_run(checkpoint_dir=None):
+    """evolve_batch_auto on the CONFIG window (traces, info)."""
+    from timecrystal_tpu_torch.parallel.sweep import (_basis_indices,
+                                                      evolve_batch_auto)
+
+    c = CONFIG
+    h, spec = _window_problem()
+    return evolve_batch_auto(
+        h, np.full(c["R"], c["tau"]), _basis_indices(c["L"], "neel"), spec,
+        chi_start=c["chi_start"], chunk_periods=c["chunk"],
+        growth=c["growth"], checkpoint_dir=checkpoint_dir, device="cuda")
+
+
 def phase_real_size():
     import torch
 
     from timecrystal_tpu_torch.core.mps import create_initial_state
-    from timecrystal_tpu_torch.core.truncate import TruncParams
     from timecrystal_tpu_torch.dynamics.tebd import evolve_floquet_scan
-    from timecrystal_tpu_torch.models.kicked_ising import (
-        draw_disorder_reference, make_floquet_gates)
-    from timecrystal_tpu_torch.ops import jacobi_svd as J
-    from timecrystal_tpu_torch.parallel.sweep import (SweepSpec, _basis_indices,
-                                                      evolve_batch_auto)
+    from timecrystal_tpu_torch.models.kicked_ising import make_floquet_gates
 
     c = CONFIG
     L, R, n_periods = c["L"], c["R"], c["n_periods"]
-    h = np.stack([draw_disorder_reference(L, c["h"], c["seed"] + r)
-                  for r in range(R)])
-    spec = SweepSpec(L=L, chi=c["chi"], n_periods=n_periods,
-                     theta=c["theta_frac"] * float(np.pi),
-                     tp=TruncParams(chi_max=0, svd_min=c["svd_min"]),
-                     dtype="float32", frame="merged")
+    h, spec = _window_problem()
     torch.cuda.reset_peak_memory_stats()
     _reset_kernel1_counts()              # the window's counts start here
-    (traces, info), win_syncs = _with_sync_count(lambda: evolve_batch_auto(
-        h, np.full(R, c["tau"]), _basis_indices(L, "neel"), spec,
-        chi_start=c["chi_start"], chunk_periods=c["chunk"],
-        growth=c["growth"], device="cuda"))
+    (traces, info), win_syncs = _with_sync_count(_window_run)
     win = _kernel1_counts()
     for k, v in traces.items():
         _check(bool(np.all(np.isfinite(v))), f"non-finite trace {k}")
@@ -916,7 +942,8 @@ def phase_real_size():
           f"per call, device counter) in {leg['launches']} launches "
           f"({leg['smem']} smem, {leg['cluster']} cluster); host syncs "
           f"{leg_syncs} ({leg['host_reads']} sweep-exit reads)", flush=True)
-    return {v: win[v] + leg[v] for v in ("smem", "cluster")}, info["wall_time"]
+    return ({v: win[v] + leg[v] for v in ("smem", "cluster")},
+            info["wall_time"], (traces, info))
 
 
 # device-time classes of the profiles: (label, fragments of the kernel's
@@ -1253,7 +1280,9 @@ DRIVE = dict(chi=48, eps=(0.0, 0.2, 8), h=(0.0, 0.8, 5))
 # legs (216 rows x 8 / 7 bonds at chi 48); the Lindblad superket (L=6,
 # n = 4 chi = 256); the ground state and the dephasing baseline (L=12, chi
 # 32); [two-time]'s pairs (2 x 4 points); the channel average (600
-# trajectories, L=4, chi 8)
+# trajectories, L=4, chi 8); [multihost]'s rank of the phase grid (60
+# points x 8 / 7 bonds); [site-shard]'s 20-site block at chi 64 (10 / 9
+# local bonds) and its boundary bond
 NEW_SHAPES = ((20, 256, 512, 1e-6), (20, 256, 256, 1e-6),
               (960, 64, 64, None), (840, 64, 64, None), (280, 96, 96, None),
               (960, 96, 96, None), (840, 96, 96, None), (32, 64, 64, None),
@@ -1262,7 +1291,8 @@ NEW_SHAPES = ((20, 256, 512, 1e-6), (20, 256, 256, 1e-6),
               (1728, 96, 96, None), (1512, 96, 96, None), (3, 256, 256, None),
               (2, 256, 256, None), (6, 64, 64, None), (5, 64, 64, None),
               (64, 64, 64, None), (56, 64, 64, None), (1200, 16, 16, None),
-              (600, 16, 16, None))
+              (600, 16, 16, None), (480, 64, 64, None), (420, 64, 64, None),
+              (10, 128, 128, None), (9, 128, 128, None), (1, 128, 128, None))
 
 
 # the Lindblad superket's shapes (n = 256, the cluster variant): in
@@ -2619,6 +2649,601 @@ def phase_two_time():
     return k
 
 
+# kill and resume, scale-out over torch.distributed and the profiling hooks:
+# every process started here has its own time limit and is reaped, so a hung
+# child or rank fails the script instead of stalling it.  The two-rank
+# phases run on the one card with Gloo (NCCL refuses two ranks on one GPU).
+CHILD_TIMEOUT = 240
+# evolve_floquet_auto at Figure A's settings (config.txt: L=64, h/J=0.25,
+# tau=2/J, seed 42, chi cap CHI_MAX=256, 200 periods, chunks of 16)
+RESUME_AUTO = dict(n_sites=64, h_frac=0.25, seed=42, n_periods=200, chunk=16)
+RESUME_GRID_CHUNKS = 8                       # sweep_phase_grid's default
+# the staged evolution over two ranks: [phase-grid]'s batch (60 points a
+# rank), chi 8 -> 16 -> 24 (the grid's chi_max), chunks of 10 periods
+STAGED_GRID = dict(chi_start=8, chunk=10)
+# one chain split 20 + 20 over two ranks: CONFIG's L=40, theta=0.9 pi,
+# h=0.3, tau=1, seed 42, svd_min 1e-7, chi 64 fixed, 10 merged periods
+SITE_SHARD = dict(L=40, chi=64, n_periods=10)
+MESH_TOL = dict(exact=1e-4, score=1e-3)
+
+
+def _meta(path) -> dict:
+    """The JSON metadata of a state checkpoint ({} until it exists)."""
+    try:
+        with np.load(path) as z:
+            return json.loads(bytes(z["__meta__"]).decode())
+    except (OSError, KeyError, ValueError):
+        return {}
+
+
+def _manifest_chunks(directory) -> int:
+    try:
+        with open(Path(directory) / "manifest.json") as f:
+            return len(json.load(f)["chunks"])
+    except (OSError, ValueError, KeyError):
+        return 0
+
+
+def _tail(path, n=25) -> str:
+    try:
+        return "\n".join(Path(path).read_text().splitlines()[-n:])
+    except OSError:
+        return ""
+
+
+def _spawn(root, name, *args):
+    """python3 chip_smoke.py --child ARGS, its output in root/name.log."""
+    log = Path(root) / f"{name}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--child",
+             *map(str, args)], stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+    return proc, log
+
+
+def _stop(procs):
+    """SIGKILL whatever still runs, and reap every process."""
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+    for p, _ in procs:
+        p.wait()
+
+
+def _kill_when(groups: dict) -> dict:
+    """Poll every group {name: (procs, ready)} together; SIGKILL a group's
+    processes as soon as its ready() holds.  Returns {name: seconds to the
+    kill}.  Fails if a process exits before its kill or CHILD_TIMEOUT
+    passes; every process is reaped either way."""
+    t0, killed = time.perf_counter(), {}
+    try:
+        while len(killed) < len(groups):
+            for name, (procs, ready) in groups.items():
+                if name in killed:
+                    continue
+                if ready():
+                    _stop(procs)
+                    killed[name] = time.perf_counter() - t0
+                    continue
+                for p, log in procs:
+                    if p.poll() is not None:
+                        raise AssertionError(f"[{name}]: a child exited "
+                                             f"({p.returncode}) before the "
+                                             f"kill:\n{_tail(log)}")
+            if time.perf_counter() - t0 > CHILD_TIMEOUT:
+                raise AssertionError(f"children not ready after "
+                                     f"{CHILD_TIMEOUT} s: {sorted(killed)} done")
+            time.sleep(0.02)
+    finally:
+        for procs, _ in groups.values():
+            _stop(procs)
+    return killed
+
+
+def _wait_all(procs, what):
+    """Wait for procs to exit 0 within CHILD_TIMEOUT; kill all otherwise."""
+    deadline = time.perf_counter() + CHILD_TIMEOUT
+    try:
+        for p, log in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{what}: hung past {CHILD_TIMEOUT} s:\n"
+                                     f"{_tail(log)}") from None
+            _check(p.returncode == 0, f"{what}: exit {p.returncode}:\n{_tail(log)}")
+    finally:
+        _stop(procs)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _max_diff(a: dict, b: dict, keys=None) -> float:
+    return max(float(np.max(np.abs(np.asarray(a[k], float) - np.asarray(b[k], float))))
+               for k in (keys or b))
+
+
+def _auto_run(checkpoint_dir=None):
+    """evolve_floquet_auto at RESUME_AUTO (Figure A's settings)."""
+    import torch
+
+    from timecrystal_tpu_torch.analysis.figures import _trunc_from_params
+    from timecrystal_tpu_torch.dynamics.tebd import evolve_floquet_auto
+
+    params, a = _config_params(), RESUME_AUTO
+    J = float(params.get("J", 1.0))
+    kw = dict(n_sites=a["n_sites"], J=J, h_disorder=a["h_frac"] * J,
+              tau=2.0 / J, disorder_seed=a["seed"], device="cuda",
+              dtype=torch.complex64)
+    return evolve_floquet_auto(kw, "neel", a["n_periods"],
+                               _trunc_from_params(params),
+                               chi_limit=int(params.get("CHI_MAX", 256)),
+                               chunk_periods=a["chunk"],
+                               checkpoint_dir=checkpoint_dir)
+
+
+def _grid_axes():
+    from timecrystal_tpu_torch.analysis import phase_diagram as PD
+
+    hc = PD.GRID_HARDCODED
+    return (np.linspace(*hc["h_range"], hc["n_points"][0]),
+            np.linspace(*hc["T_range"], hc["n_points"][1]))
+
+
+def _grid_sweep(checkpoint_dir=None):
+    """sweep_phase_grid on [phase-grid]'s grid in RESUME_GRID_CHUNKS chunks."""
+    from timecrystal_tpu_torch.analysis import phase_diagram as PD
+
+    h_values, T_values = _grid_axes()
+    cs = -(-h_values.size * T_values.size // RESUME_GRID_CHUNKS)
+    return PD.sweep_phase_grid(h_values, T_values, _config_params(),
+                               chunk_size=cs, checkpoint_dir=checkpoint_dir,
+                               device="cuda")
+
+
+def _counted(fn):
+    """(fn(), seconds, kernel-1 counts of the call)."""
+    _reset_kernel1_counts()
+    out, dt = _timed(fn)
+    return out, dt, _kernel1_counts()
+
+
+def _add_counts(total, c):
+    for v in ("smem", "cluster"):
+        total[v] += c[v]
+
+
+def _bounded(resumed, ref, rerun, total):
+    """(max |resumed - ref|, how it was bounded): 0 passes at once;
+    otherwise a second uninterrupted run (rerun(); its kernel-1 launches
+    join total) bounds it by its own difference from ref, and a larger
+    difference fails."""
+    d = _max_diff(resumed, ref)
+    if d == 0.0:
+        return d, "bit for bit"
+    again, _, k = _counted(rerun)
+    _add_counts(total, k)
+    d_det = _max_diff(again, ref)
+    _check(d <= d_det, f"resumed run differs by {d}, two uninterrupted runs "
+           f"by {d_det}")
+    return d, f"two uninterrupted runs differ by {d_det:.2e}, the bound"
+
+
+def phase_resume(window_ref):
+    """Kill and resume through checkpoint_dir: three children run the CONFIG
+    window (evolve_batch_auto), one Figure A chain (evolve_floquet_auto) and
+    the phase grid in eight chunks (sweep_phase_grid) and are sent SIGKILL
+    once two chunks, one chunk and two chunks are on disk; each is resumed
+    here and held against uninterrupted runs in this process, bit for bit
+    unless two uninterrupted runs differ (then by their difference)."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="tc_resume_"))
+    total = {"smem": 0, "cluster": 0}
+    try:
+        d = {k: root / k for k in ("window", "auto", "grid")}
+        ready = {
+            "window": lambda: _meta(d["window"] / "batch_auto_state.npz")
+            .get("n_chunks", 0) >= 2,
+            "auto": lambda: _meta(d["auto"] / "auto_state.npz")
+            .get("n_chunks", 0) >= 1,
+            "grid": lambda: _manifest_chunks(d["grid"]) >= 2}
+        killed = _kill_when({f"resume-{k}": (
+            [_spawn(root, k, f"resume-{k}", d[k])], ready[k]) for k in d})
+        killed = {k: killed[f"resume-{k}"] for k in d}
+
+        # the window: [window]'s run, one more uninterrupted run, the resume
+        c = CONFIG
+        ref1, ref1_info = window_ref
+        (ref2, ref2_info), dt_ref, k = _counted(_window_run)
+        _add_counts(total, k)
+        p_killed = _meta(d["window"] / "batch_auto_state.npz")["p_done"]
+        (out, info), dt, k = _counted(lambda: _window_run(d["window"]))
+        _add_counts(total, k)
+        d_det, d_res = _max_diff(ref1, ref2), _max_diff(out, ref2)
+        same = all(info[x] == ref2_info[x] == ref1_info[x]
+                   for x in ("chi_pad_used", "chi_escalations"))
+        rate = c["R"] * (c["n_periods"] - p_killed) / dt
+        print(f"[resume-window] evolve_batch_auto (CONFIG, checkpoint_dir) "
+              f"killed by SIGKILL {killed['window']:.1f} s after its start with "
+              f"{p_killed} of {c['n_periods']} periods on disk; resumed in "
+              f"{dt:.2f} s ({rate:.2f} chain-periods/s over the remaining "
+              f"periods; uninterrupted {ref2_info['chain_periods_per_second']:.2f} "
+              f"in {dt_ref:.2f} s); max |resumed - uninterrupted| {d_res:.2e}, two "
+              f"uninterrupted runs differ by {d_det:.2e} (the bound); chi_pad_used "
+              f"{info['chi_pad_used']}, escalations equal: {same}; kernel 1: "
+              f"{k['launches']} launches ({k['smem']} smem)", flush=True)
+        _check(0 < p_killed < c["n_periods"], f"[resume-window] killed at {p_killed}")
+        _check(d_res <= d_det and same, f"[resume-window] resumed run differs: "
+               f"{d_res} (bound {d_det}), schedule equal {same}")
+
+        # Figure A's chain
+        (a1, _, a1_info, _), dt_a, k = _counted(_auto_run)
+        _add_counts(total, k)
+        p_killed = _meta(d["auto"] / "auto_state.npz")["p_done"]
+        (ao, _, ao_info, _), dt, k = _counted(lambda: _auto_run(d["auto"]))
+        _add_counts(total, k)
+        d_res, bound = _bounded(ao, a1, lambda: _auto_run()[0], total)
+        same = ao_info["chi_escalations"] == a1_info["chi_escalations"]
+        n = RESUME_AUTO["n_periods"]
+        print(f"[resume-auto] evolve_floquet_auto (Figure A: L={RESUME_AUTO['n_sites']}, "
+              f"{n} periods, chunks of {RESUME_AUTO['chunk']}) killed "
+              f"{killed['auto']:.1f} s after its start with {p_killed} periods on "
+              f"disk; resumed in {dt:.2f} s ({(n - p_killed) / dt:.1f} periods/s; "
+              f"uninterrupted {a1_info['periods_per_second']:.1f} periods/s, "
+              f"{dt_a:.2f} s); max |resumed - uninterrupted| {d_res:.2e} "
+              f"({bound}); chi_pad_used {ao_info['chi_pad_used']}, escalations "
+              f"equal: {same}", flush=True)
+        _check(0 < p_killed < n, f"[resume-auto] killed at {p_killed}")
+        _check(same, "[resume-auto] the escalations differ")
+
+        # the phase grid in eight chunks
+        g1, dt_g, k = _counted(_grid_sweep)
+        _add_counts(total, k)
+        n_done = _manifest_chunks(d["grid"])
+        go, dt, k = _counted(lambda: _grid_sweep(d["grid"]))
+        _add_counts(total, k)
+
+        def flat(res):
+            return dict(res["traces"], **{
+                key: np.array([r[key] for r in res["records"]])
+                for key in ("A2T", "dtc_score_raw")})
+        d_res, bound = _bounded(flat(go), flat(g1),
+                                lambda: flat(_grid_sweep()), total)
+        P = len(go["records"])
+        print(f"[resume-grid] sweep_phase_grid ({P} points, {RESUME_GRID_CHUNKS} "
+              f"chunks) killed {killed['grid']:.1f} s after its start with "
+              f"{n_done} chunks on disk; resumed in {dt:.2f} s "
+              f"({P * (RESUME_GRID_CHUNKS - n_done) / RESUME_GRID_CHUNKS / dt:.2f} "
+              f"points/s over the remaining chunks; uninterrupted "
+              f"{P / dt_g:.2f} points/s: eight launch-bound chunks); max "
+              f"|resumed - uninterrupted| of the traces and the scores "
+              f"{d_res:.2e} ({bound})", flush=True)
+        _check(2 <= n_done < RESUME_GRID_CHUNKS, f"[resume-grid] killed at {n_done}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def _grid_problem():
+    """(spec, h_fields, taus, hs, Ts) of [phase-grid]'s batch."""
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.parallel.sweep import SweepSpec, phase_grid_batch
+
+    g = GRID
+    spec = SweepSpec(L=g["L"], chi=g["chi"], n_periods=g["n_periods"],
+                     theta=float(np.pi), dtype="float32",
+                     tp=TruncParams(chi_max=g["chi_max"], svd_min=g["svd_min"],
+                                    trunc_cut=g["trunc_cut"]))
+    hf, taus, hs, Ts = phase_grid_batch(np.linspace(*g["h"]),
+                                        np.linspace(*g["T"]), spec,
+                                        disorder_seed=g["seed"])
+    return spec, hf, taus, hs, Ts
+
+
+def _staged_grid(mesh=None, checkpoint_dir=None):
+    from timecrystal_tpu_torch.parallel.sweep import (_basis_indices,
+                                                      evolve_batch_auto)
+
+    spec, hf, taus, _, _ = _grid_problem()
+    return evolve_batch_auto(hf, taus, _basis_indices(spec.L, "neel"), spec,
+                             chi_start=STAGED_GRID["chi_start"],
+                             chunk_periods=STAGED_GRID["chunk"], mesh=mesh,
+                             checkpoint_dir=checkpoint_dir, device="cuda")
+
+
+def _site_problem():
+    """(psi0, gates, tp) of SITE_SHARD's chain on the card."""
+    import torch
+
+    from timecrystal_tpu_torch.core.mps import create_initial_state
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+    from timecrystal_tpu_torch.models.kicked_ising import (
+        draw_disorder_reference, make_floquet_gates)
+
+    c, s = CONFIG, SITE_SHARD
+    h = torch.as_tensor(draw_disorder_reference(s["L"], c["h"], c["seed"]),
+                        device="cuda")
+    gates = make_floquet_gates(1.0, h, c["tau"], theta=c["theta_frac"] * float(np.pi),
+                               dtype=torch.complex64)
+    psi0 = create_initial_state(s["L"], "neel", chi=s["chi"],
+                                dtype=torch.complex64, device="cuda")
+    return psi0, gates, TruncParams(chi_max=0, svd_min=c["svd_min"])
+
+
+def _rank_child(kind, rank, port, root):
+    """One of two Gloo ranks on the card.  'multihost': evolve_batch_multihost
+    on [phase-grid]'s batch, then the staged evolution with per-rank
+    checkpoints (killed by the parent).  'resume': the staged evolution
+    resumed, then the site-sharded chain."""
+    import torch
+
+    from timecrystal_tpu_torch.parallel import multihost as mh
+    from timecrystal_tpu_torch.parallel.site_shard import evolve_floquet_sharded
+    from timecrystal_tpu_torch.parallel.sweep import _basis_indices
+
+    root = Path(root)
+    mh.initialize("gloo", f"tcp://localhost:{port}", world_size=2,
+                  rank=int(rank), timeout_s=CHILD_TIMEOUT)
+    mesh = mh.global_mesh("cuda")
+    out = {}
+    if kind == "multihost":
+        spec, hf, taus, _, _ = _grid_problem()
+
+        def run():
+            return mh.evolve_batch_multihost(
+                hf, taus, _basis_indices(spec.L, "neel"), spec, mesh=mesh)
+        _, first, _ = _counted(run)      # the process's one-time start-up
+        tr, dt, k = _counted(run)
+        np.savez(root / f"mh{rank}.npz", seconds=dt, first=first,
+                 counts=json.dumps(k), **tr)
+        _staged_grid(mesh, root / "staged")          # killed by the parent
+        return 1
+    p_killed = _meta(root / "staged" / f"rank_{int(rank):04d}" /
+                     "batch_auto_state.npz")["p_done"]
+    (tr, info), dt, k = _counted(lambda: _staged_grid(mesh, root / "staged"))
+    out.update(staged_seconds=dt, staged_counts=json.dumps(k),
+               staged_info=json.dumps(info), staged_p_killed=p_killed,
+               **{f"staged_{key}": v for key, v in tr.items()})
+    psi0, gates, tp = _site_problem()
+    ((B, lam), st), dt, k = _counted(lambda: evolve_floquet_sharded(
+        psi0, gates, SITE_SHARD["n_periods"], tp, mesh=mesh, frame="merged"))
+    out.update(site_seconds=dt, site_counts=json.dumps(k), site_chi=B.shape[-1],
+               **{f"site_{key}": np.asarray(v) for key, v in st.items()})
+    np.savez(root / f"resume{rank}.npz", **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _exact_prefix(trunc_err):
+    """Rows of [R, n] before the first period discarding > GRID_EXACT_TRUNC."""
+    return np.cumsum(np.asarray(trunc_err) > GRID_EXACT_TRUNC, axis=-1) == 0
+
+
+def _mesh_check(tag, tr, ref, hs, Ts, taus):
+    """Two-rank traces against the single-process card run: sz and LE within
+    MESH_TOL['exact'] before the single-process run truncates, A2T within
+    MESH_TOL['score'] and the DTC verdict equal at every point."""
+    from timecrystal_tpu_torch.analysis.detection import score_grid
+
+    exact = _exact_prefix(ref["trunc_err"])
+    d = max(float(np.max(np.abs(tr[k] - ref[k])[exact]))
+            for k in ("sz_sites", "loschmidt_echo"))
+    times = np.arange(ref["loschmidt_echo"].shape[1])[None] * (2.0 * taus)[:, None]
+    recs = [score_grid(x, times, hs, Ts, 2.0 * taus) for x in (tr, ref)]
+    d_a2t = max(abs(a["A2T"] - b["A2T"]) for a, b in zip(*recs))
+    verdict = all((a["dtc_score_raw"] > 0) == (b["dtc_score_raw"] > 0)
+                  for a, b in zip(*recs))
+    print(f"[{tag}] against the single-process card run: before it truncates "
+          f"(> {GRID_EXACT_TRUNC:.0e}; {int(exact.sum())} of {exact.size} rows) "
+          f"max |d sz|, |d LE| {d:.2e} (< {MESH_TOL['exact']:.0e}); all rows "
+          f"{_max_diff(tr, ref, ('sz_sites', 'loschmidt_echo')):.2e}; max |d A2T| "
+          f"{d_a2t:.2e} (< {MESH_TOL['score']:.0e}); DTC verdict equal at every "
+          f"point: {verdict} ({sum(r['dtc_score_raw'] > 0 for r in recs[1])} DTC "
+          f"points)", flush=True)
+    _check(d < MESH_TOL["exact"] and d_a2t < MESH_TOL["score"] and verdict,
+           f"[{tag}] differs from the single-process run: {d}, {d_a2t}, {verdict}")
+
+
+def phase_multihost():
+    """[multihost] and [site-shard]: two Gloo ranks on the one card.  The
+    first pair runs evolve_batch_multihost on [phase-grid]'s batch and the
+    staged evolution with per-rank checkpoints, and is killed once both
+    ranks hold two chunks; the second pair resumes it and runs one CONFIG
+    chain split 20 + 20 over the ranks.  Each is held against the same
+    work in this process."""
+    import shutil
+    import tempfile
+
+    from timecrystal_tpu_torch.dynamics.tebd import evolve_floquet_scan
+    from timecrystal_tpu_torch.parallel.sweep import _basis_indices, evolve_batch
+
+    root = Path(tempfile.mkdtemp(prefix="tc_ranks_"))
+    total = {"smem": 0, "cluster": 0}
+    try:
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = [_spawn(root, f"mh{r}", "rank", "multihost", r, port, root)
+                 for r in (0, 1)]
+
+        def ready():
+            return all((root / f"mh{r}.npz").exists() and _meta(
+                root / "staged" / f"rank_{r:04d}" / "batch_auto_state.npz")
+                .get("n_chunks", 0) >= 2 for r in (0, 1))
+        _kill_when({"multihost": (ranks, ready)})
+        t_kill = time.perf_counter() - t0
+        port = _free_port()
+        ranks = [_spawn(root, f"resume{r}", "rank", "resume", r, port, root)
+                 for r in (0, 1)]
+        _wait_all(ranks, "[multihost] second pair")
+        t_all = time.perf_counter() - t0
+        mh = [dict(np.load(root / f"mh{r}.npz")) for r in (0, 1)]
+        rs = [dict(np.load(root / f"resume{r}.npz")) for r in (0, 1)]
+        for res in mh + rs:
+            for key in ("counts", "staged_counts", "site_counts"):
+                if key in res:
+                    _add_counts(total, json.loads(str(res[key])))
+
+        spec, hf, taus, hs, Ts = _grid_problem()
+        basis = _basis_indices(spec.L, "neel")
+        ref, dt_ref, k = _counted(lambda: evolve_batch(hf, taus, basis, spec,
+                                                       device="cuda"))
+        _add_counts(total, k)
+        keys = [x for x in ref]
+        full = all(mh[r][x].shape == ref[x].shape for r in (0, 1) for x in keys)
+        ranks_equal = all(np.array_equal(mh[0][x], mh[1][x]) for x in keys)
+        P, nb = len(taus), 2 * spec.chi
+        c0 = json.loads(str(mh[0]["counts"]))
+        print(f"[multihost] two Gloo ranks on the card (torch.distributed, "
+              f"one process each): evolve_batch_multihost on [phase-grid]'s "
+              f"{P} points, {P // 2} a rank: {P / float(mh[0]['seconds']):.2f} "
+              f"points/s ({float(mh[0]['seconds']):.2f} s, the second run in each "
+              f"rank, both ranks at once; one process, all "
+              f"points: {P / dt_ref:.2f} points/s); rank 0's kernel 1: "
+              f"{c0['calls']} SVD calls of [{P // 2 * (spec.L // 2)}, {nb}, {nb}] "
+              f"/ [{P // 2 * (spec.L // 2 - 1)}, {nb}, {nb}], {c0['launches']} "
+              f"launches; each rank "
+              f"returns the full traces: {full}, the same: {ranks_equal}; each "
+              f"rank's first run (start-up included) {float(mh[0]['first']):.2f} "
+              f"s; the "
+              f"pairs of ranks ran {t_kill:.1f} s to the kill and {t_all:.1f} s "
+              f"in all", flush=True)
+        _check(full and ranks_equal, "[multihost] the ranks' traces")
+        _check(c0["smem"] > 0, f"[multihost] rank 0 ran no kernel-1 sweep: {c0}")
+        _mesh_check("multihost", {x: mh[0][x] for x in keys}, ref, hs, Ts, taus)
+
+        (sref, sinfo), dt_s, k = _counted(_staged_grid)
+        _add_counts(total, k)
+        st = {x: rs[0][f"staged_{x}"] for x in sref}
+        info = json.loads(str(rs[0]["staged_info"]))
+        p_killed = int(rs[0]["staged_p_killed"])
+        _check(all(np.array_equal(rs[0][f"staged_{x}"], rs[1][f"staged_{x}"])
+                   for x in sref), "[multihost] the ranks' staged traces")
+        print(f"[multihost] evolve_batch_auto(mesh=2 ranks, checkpoint_dir) on "
+              f"the same batch (chi {STAGED_GRID['chi_start']} -> cap "
+              f"{GRID['chi_max']}, chunks of {STAGED_GRID['chunk']}): killed with "
+              f"{p_killed} periods in each rank's rank_NNNN checkpoint, resumed in "
+              f"{float(rs[0]['staged_seconds']):.2f} s; schedule {info['chi_escalations']} "
+              f"(one process: {sinfo['chi_escalations']}, "
+              f"{sinfo['chain_periods_per_second']:.1f} chain-periods/s)", flush=True)
+        _check(0 < p_killed < spec.n_periods, f"[multihost] killed at {p_killed}")
+        _mesh_check("multihost-staged", st, sref, hs, Ts, taus)
+
+        psi0, gates, tp = _site_problem()
+        n = SITE_SHARD["n_periods"]
+        (_, sp), dt_sp, k = _counted(lambda: evolve_floquet_scan(
+            psi0, gates, n, tp, frame="merged"))
+        _add_counts(total, k)
+        sp = {x: v.cpu().numpy() for x, v in sp.items()}
+        exact = _exact_prefix(sp["trunc_err"])
+        d = max(float(np.max(np.abs(rs[0][f"site_{x}"] - sp[x])[exact]))
+                for x in ("sz_sites", "loschmidt_echo"))
+        d_all = max(float(np.max(np.abs(rs[0][f"site_{x}"] - sp[x])))
+                    for x in ("sz_sites", "loschmidt_echo"))
+        ck = json.loads(str(rs[0]["site_counts"]))
+        same = all(np.array_equal(rs[0][f"site_{x}"], rs[1][f"site_{x}"])
+                   for x in ("sz_sites", "loschmidt_echo"))
+        half, nb = SITE_SHARD["L"] // 2, 2 * SITE_SHARD["chi"]
+        print(f"[site-shard] one chain (L={SITE_SHARD['L']}, chi "
+              f"{SITE_SHARD['chi']}, {n} merged periods) split {half} + {half} "
+              f"over the two ranks: {n / float(rs[0]['site_seconds']):.2f} "
+              f"periods/s ({float(rs[0]['site_seconds']):.2f} s; one process "
+              f"{n / dt_sp:.2f}); rank 0's kernel 1: {ck['calls']} SVD calls "
+              f"([{half // 2}, {nb}, {nb}], [{half // 2 - 1}, {nb}, {nb}] and the "
+              f"boundary [1, {nb}, {nb}]), {ck['launches']} launches; against the "
+              f"single-process "
+              f"evolve_floquet_scan: before it truncates ({int(exact.sum())} of "
+              f"{n} periods) max |d sz|, |d LE| {d:.2e} (< {MESH_TOL['exact']:.0e}), "
+              f"all periods {d_all:.2e}; both ranks the same traces: {same}",
+              flush=True)
+        _check(bool(exact[0]) and d < MESH_TOL["exact"] and same,
+               f"[site-shard] {d}, ranks equal {same}")
+        _check(ck["smem"] > 0, f"[site-shard] rank 0 ran no kernel-1 sweep: {ck}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def phase_profiling():
+    """utils/profiling.py on one window chunk (CONFIG at chi_start, 5 merged
+    periods): PhaseTimer spans fenced on the card, device_trace's Chrome
+    trace naming kernel 1's shared-memory variant."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from timecrystal_tpu_torch.core.mps import product_state
+    from timecrystal_tpu_torch.dynamics.tebd import evolve_floquet_scan
+    from timecrystal_tpu_torch.models.kicked_ising import make_floquet_gates
+    from timecrystal_tpu_torch.parallel.sweep import _basis_indices, _stage_tp
+    from timecrystal_tpu_torch.utils.profiling import (PhaseTimer, device_trace,
+                                                       timed_blocked)
+
+    c = CONFIG
+    h, spec = _window_problem()
+    gates = make_floquet_gates(1.0, torch.as_tensor(h, dtype=torch.float32,
+                                                    device="cuda"),
+                               c["tau"], theta=spec.theta, dtype=torch.complex64)
+    psi0 = product_state(np.broadcast_to(_basis_indices(c["L"], "neel"),
+                                         (c["R"], c["L"])),
+                         chi=c["chi_start"], dtype=torch.complex64, device="cuda")
+    tp = _stage_tp(spec.tp, "cuda")
+
+    def chunk():
+        return evolve_floquet_scan(psi0, gates, c["chunk"], tp, frame="merged")
+
+    root = tempfile.mkdtemp(prefix="tc_trace_")
+    _reset_kernel1_counts()
+    try:
+        with PhaseTimer() as t:
+            with t.phase("chunk"):
+                t.fence(chunk())
+            with t.phase("traced"), device_trace(root):
+                t.fence(chunk())
+        _, blocked = timed_blocked(chunk)
+        k = _kernel1_counts()
+        text = (Path(root) / "trace.json").read_text()
+        kb = len(text) // 1024
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    spans = t.report()
+    named = "jacobi_sv_smem_kernel" in text
+    print(f"[profiling] one window chunk (R={c['R']}, L={c['L']}, chi "
+          f"{c['chi_start']}, {c['chunk']} merged periods): PhaseTimer spans "
+          f"{ {key: round(v, 4) for key, v in spans.items()} } s, timed_blocked "
+          f"{blocked:.4f} s; device_trace's Chrome trace {kb} KiB names "
+          f"jacobi_sv_smem_kernel: {named}; kernel 1: {k['launches']} launches "
+          f"({k['smem']} smem)", flush=True)
+    _check(all(v > 0 for v in spans.values()) and blocked > 0,
+           f"[profiling] spans {spans}, {blocked}")
+    _check(named, "[profiling] the trace does not name kernel 1's variant")
+    return k
+
+
+def _child_main(args) -> int:
+    """Entry of the processes phase_resume and phase_multihost start."""
+    import torch
+
+    import timecrystal_tpu_torch  # noqa: F401  (sets full-precision matmuls)
+
+    if not torch.cuda.is_available():
+        return 2
+    kind = args[0]
+    if kind == "rank":
+        return _rank_child(*args[1:])
+    run = {"resume-window": _window_run, "resume-auto": _auto_run,
+           "resume-grid": _grid_sweep}[kind]
+    run(Path(args[1]))
+    return 1                    # the parent kills it before the run ends
+
+
 def main() -> int:
     import torch
 
@@ -2645,7 +3270,7 @@ def main() -> int:
     stamp("kernel 2 checks")
     phase_golden()
     stamp("golden")
-    launches, window_s = phase_real_size()
+    launches, window_s, window_ref = phase_real_size()
     phase_window_profile(window_s)
     stamp("window")
     # the saturated steady leg (kernel 1's cluster variant) and the fixed-chi
@@ -2677,8 +3302,18 @@ def main() -> int:
     dyn = (phase_memory(), phase_lindblad(), phase_ground_state(),
            phase_open_system(), phase_two_time())
     stamp("open-system and ground-state dynamics")
+    # kill and resume, the two-rank scale-out on the card and the profiling
+    # hooks: the launches of every run of an entry point (in this process
+    # and, as the children report them, in theirs) join the main path's
+    scale = (phase_resume(window_ref), phase_multihost(), phase_profiling())
+    print(f"[launches] kernel-1 launches of the runs above (smem / cluster): "
+          f"resume {scale[0]['smem']} / {scale[0]['cluster']}, two ranks (the "
+          f"children's counts included) {scale[1]['smem']} / "
+          f"{scale[1]['cluster']}, profiling {scale[2]['smem']} / "
+          f"{scale[2]['cluster']}", flush=True)
+    stamp("resume, scale-out and profiling")
     for c in ((settle, chi512) + tuple(r["launches"] for r in steady.values())
-              + tuple(closed.values()) + grids + app + dyn):
+              + tuple(closed.values()) + grids + app + dyn + scale):
         for v in ("smem", "cluster"):
             launches[v] += c[v]
     phase_tdvp_oracle()
@@ -2719,4 +3354,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(_child_main(sys.argv[2:]))
     sys.exit(main())

@@ -309,24 +309,58 @@ def test_cli_without_cpu_needs_a_card(monkeypatch):
     assert tmain.run_device(True) == ("cpu", C128)
 
 
-def test_memory_diagram_raises_naming_its_item():
-    """--memory-diagram runs now (tests/test_torch_open_system.py renders
-    it); what the memory figure does not port yet, a device mesh, raises
-    naming its ROADMAP item."""
+def test_memory_diagram_raises_naming_its_item(tmp_path):
+    """--memory-diagram runs (tests/test_torch_open_system.py renders it),
+    and so does its ``mesh`` now: the figure's scans over a two-device CPU
+    mesh (three rows a leg, one padded) return the unsharded results bit
+    for bit."""
     from timecrystal_tpu_torch.analysis import memory as tmem
 
-    with pytest.raises(NotImplementedError, match="'Scale-out'"):
-        tmem.generate_memory_figure(PARAMS, mesh=object(), device="cpu")
+    kw = dict(gammas=[0.05], L=4, n_periods=4, chi=4, n_realizations=1,
+              n_trajectories=3, eps_values=[0.0, 0.1], device="cpu",
+              dtype=C128)
+    _, ref = tmem.generate_memory_figure(PARAMS, out_dir=str(tmp_path / "a"),
+                                         **kw)
+    _, out = tmem.generate_memory_figure(
+        PARAMS, out_dir=str(tmp_path / "b"),
+        mesh=tsw.BatchMesh(("cpu", "cpu")), **kw)
+    for res_ref, res in ((ref, out), (ref["eps_scan"], out["eps_scan"])):
+        for k, v in res_ref.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(res[k], v, err_msg=k)
+
+
+def _grid_pair(which, tmp_path):
+    """(plain run, run with the option) of a grid cut to L=6, 4 periods."""
+    hv, Tv = [0.0, 0.2, 0.4], [1.6, 2.0]
+    if which == "drive":
+        kw = dict(n_sites=6, n_periods=4, chi_pad=8, device="cpu", dtype=C128)
+        return (tpd.sweep_drive_grid(hv, Tv, PARAMS, **kw),
+                tpd.sweep_drive_grid(hv, Tv, PARAMS, **kw,
+                                     mesh=tsw.BatchMesh(("cpu",) * 4)))
+    kw = dict(chi_pad=8, device="cpu", dtype=C128)
+    opt = ({"mesh": "auto"} if which == "auto" else
+           {"checkpoint_dir": str(tmp_path / "ck"), "chunk_size": 2})
+    return (tpd.sweep_phase_grid(hv, Tv, PARAMS, **kw),
+            tpd.sweep_phase_grid(hv, Tv, PARAMS, **kw, **opt))
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: tpd.sweep_phase_grid([0.1], [2.0], PARAMS, mesh="auto",
-                                  device="cpu"), "Scale-out"),
-    (lambda: tpd.sweep_drive_grid([0.1], [0.2], PARAMS, mesh=object(),
-                                  device="cpu"), "Scale-out"),
-    (lambda: tpd.sweep_phase_grid([0.1], [2.0], PARAMS, checkpoint_dir="x",
-                                  device="cpu"), "Utilities"),
-])
-def test_unported_grid_options_raise(call, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1, '{item}'"):
-        call()
+    ("auto", "Scale-out"), ("drive", "Scale-out"), ("checkpoint", "Utilities"),
+], ids=["<lambda>-Scale-out0", "<lambda>-Scale-out1", "<lambda>-Utilities"])
+def test_unported_grid_options_raise(call, item, tmp_path, monkeypatch):
+    """The grids' options, ported now: ``mesh='auto'`` on the CPU is no
+    mesh; the drive grid over a four-device CPU mesh (six points, two
+    padded); the phase grid's ``checkpoint_dir`` (three chunks of two).
+    Each gives the plain run's traces bit for bit."""
+    monkeypatch.setattr(tpd, "GRID_HARDCODED",
+                        dict(tpd.GRID_HARDCODED, n_sites=6, n_periods=4))
+    ref, out = _grid_pair(call, tmp_path)
+    for k in ref["traces"]:
+        np.testing.assert_array_equal(out["traces"][k], ref["traces"][k],
+                                      err_msg=k)
+    if call == "checkpoint":
+        from timecrystal_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+        assert SweepCheckpointer(str(tmp_path / "ck")).completed_chunks() \
+            == {0, 1, 2}

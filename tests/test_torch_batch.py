@@ -172,11 +172,21 @@ def test_evolve_batch_unported_options_raise(option, item):
 
 
 def test_disorder_ensemble_mesh_raises():
-    spec = tsw.SweepSpec(L=L, chi=4, n_periods=1, dtype="float64")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, 'Scale-out'"):
-        tsw.disorder_ensemble(torch.Generator().manual_seed(0), 2, spec, 0.3,
-                              1.0, mesh=object(), device="cpu")
+    """disorder_ensemble's ``mesh`` is ported: three realizations over a
+    two-device CPU mesh (one padded row), fixed-chi and staged, give the
+    unsharded traces bit for bit."""
+    spec = tsw.SweepSpec(L=L, chi=4, n_periods=2, theta=0.9 * np.pi,
+                         dtype="float64")
+    mesh = tsw.BatchMesh(("cpu", "cpu"))
+    for staged in (False, True):
+        ref, out = (tsw.disorder_ensemble(torch.Generator().manual_seed(0), 3,
+                                          spec, 0.3, 1.0, mesh=m,
+                                          staged=staged, chi_start=2,
+                                          device="cpu")
+                    for m in (None, mesh))
+        assert set(out) == set(ref) and out["sz_sites"].shape[0] == 3
+        for k in ref:
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
 
 
 def _count_proj_calls(monkeypatch):

@@ -206,8 +206,11 @@ def test_observables_match_jax():
         np.asarray(jobs.staggered_signs(6, jnp.float64)))
 
 
-def test_unported_options_raise():
-    """checkpoint_dir raises naming its ROADMAP item.  with_states is
+def test_unported_options_raise(tmp_path):
+    """Every option is ported.  evolve_floquet_auto's checkpoint_dir: a run
+    through it, and a second call that only loads it, give the plain run's
+    traces bit for bit (kill and resume: tests/test_torch_checkpoint.py).
+    with_states is
     ported: it adds the measured states on the host, the last of them the
     final state (and the merged frame refuses it, as in the JAX package).
     correlation_site is ported: it adds zz_corr, the last row of which is
@@ -227,7 +230,13 @@ def test_unported_options_raise():
     np.testing.assert_allclose(tr["zz_corr"][-1].numpy(),
                                tobs.zz_correlation_profile(psi, 1).numpy(),
                                rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tebd.evolve_floquet_auto(dict(n_sites=4, J=1.0, h_disorder=0.3,
-                                      tau=1.0, device="cpu"), "neel", 2,
-                                 checkpoint_dir="unused")
+    mk = dict(n_sites=4, J=1.0, h_disorder=0.3, tau=1.0, disorder_seed=3,
+              theta=0.9 * np.pi, device="cpu", dtype=C128)
+    ref = tebd.evolve_floquet_auto(mk, "neel", 4, chi_start=2,
+                                   chunk_periods=2)[0]
+    for _ in range(2):
+        out = tebd.evolve_floquet_auto(mk, "neel", 4, chi_start=2,
+                                       chunk_periods=2,
+                                       checkpoint_dir=str(tmp_path))[0]
+        for k in ref:
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)

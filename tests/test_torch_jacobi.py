@@ -194,17 +194,22 @@ def test_csvd_topk_jacobi_matches_native():
                                     "jacobi_core_fast", "gram_eigh",
                                     "gram_eigh_gs"])
 def test_unported_methods_raise(method):
-    """The JAX package's other csvd_topk names.  The Gram/eigh names are not
-    ported and raise naming their ROADMAP item.  The projected methods are
+    """The JAX package's other csvd_topk names.  The Gram/eigh names are
+    aliases of 'auto' (on a CPU tensor 'native': the same S, Vh and disc
+    bit for bit; tests/test_torch_checkpoint.py holds csvd's aliases to the
+    JAX package's Gram/eigh SVD).  The projected methods are
     ported: on a [2, 16, 16] batch whose top 8 singular values (1 to 0.1)
     stand 1e5 above the rest -- the steady state's steep boundary -- their
     top-k S matches 'native''s to 1e-10 x sigma_max (one power
     application from the fixed basis captures the top subspace to
     ~(1e-6 / 0.1)^2), and disc is conservative."""
     if method.startswith("gram"):
-        M = torch.eye(4, dtype=torch.complex128)[None]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            csvd_topk(M, 2, method=method)
+        rng = np.random.default_rng(4)
+        M = torch.as_tensor(rng.normal(size=(2, 16, 16))
+                            + 1j * rng.normal(size=(2, 16, 16)))
+        S, Vh, disc = csvd_topk(M, 8, method=method)
+        Sn, Vhn, dn = csvd_topk(M, 8, method="native")
+        assert torch.equal(S, Sn) and torch.equal(Vh, Vhn) and torch.equal(disc, dn)
         return
     rng = np.random.default_rng(9)
     s = np.concatenate([np.logspace(0, -1, 8), 1e-6 * np.logspace(0, -1, 8)])

@@ -249,7 +249,8 @@ def test_hermitian_factorizations_match_jax():
     """heigh, hermitian_invsqrt and cqr_tall against the JAX package's
     'native' forms (LAPACK eigh on both sides): eigenvalues to 1e-12; the
     inverse square root, Q and R -- gauge-free products -- to 1e-10, on a
-    tall matrix of rank 3 < 4 columns (the padded-rank mask)."""
+    tall matrix of rank 3 < 4 columns (the padded-rank mask).  heigh's
+    Gram/eigh names give its 'native' result bit for bit."""
     rng = np.random.default_rng(4)
     M = (rng.normal(size=(8, 3)) + 1j * rng.normal(size=(8, 3))) @ \
         (rng.normal(size=(3, 4)) + 1j * rng.normal(size=(3, 4)))
@@ -268,5 +269,7 @@ def test_hermitian_factorizations_match_jax():
     np.testing.assert_allclose(Qp.numpy(), _np(Qj), rtol=0, atol=1e-10)
     np.testing.assert_allclose(Rp.numpy(), _np(Rj), rtol=0, atol=1e-10)
     np.testing.assert_allclose((Qp @ Rp).numpy(), M, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcsvd.heigh(torch.as_tensor(G), method="gram_eigh")
+    # the Gram/eigh names are aliases of heigh's one method, 'native'
+    for alias in ("gram_eigh", "gram_eigh_gs"):
+        wa, Va = tcsvd.heigh(torch.as_tensor(G), method=alias)
+        assert torch.equal(wa, wp) and torch.equal(Va, Vp)

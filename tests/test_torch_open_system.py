@@ -34,6 +34,7 @@ from timecrystal_tpu_torch.core.truncate import TruncParams
 from timecrystal_tpu_torch.dynamics import open_system as tos
 from timecrystal_tpu_torch.dynamics import tebd as ttebd
 from timecrystal_tpu_torch.models.kicked_ising import KickedIsingModel
+from timecrystal_tpu_torch.parallel import sweep as tsw
 
 C128 = torch.complex128
 CPU = dict(device="cpu", dtype=C128)
@@ -286,26 +287,58 @@ def test_eps_axis_opens_the_channel():
     assert res["tau_bit"][1] < res["tau_bit"][0]
 
 
+def _ported(which, tmp_path):
+    """The options that used to raise, ported: each returns the plain run's
+    numbers bit for bit.  'mesh': scan_memory_lifetime over a two-device
+    CPU mesh (three rows a leg, one padded); 'checkpoint': the eps scan
+    through checkpoint_dir in chunks of one row, run twice (the second
+    call loads every chunk); 'ensemble': evolve_ensemble's trajectories
+    over a two-device CPU mesh, the noise drawn from the same seed."""
+    kw = dict(L=6, n_periods=2, chi=8, n_trajectories=3, **CPU)
+    if which == "mesh":
+        ref = tmem.scan_memory_lifetime([0.02], **kw)
+        out = tmem.scan_memory_lifetime([0.02], mesh=tsw.BatchMesh(("cpu",) * 2),
+                                        **kw)
+    elif which == "checkpoint":
+        ref = tmem.scan_memory_vs_eps([0.0, 0.1], 0.02, **kw)
+        ck = dict(kw, checkpoint_dir=str(tmp_path / "ck"), chunk_size=1)
+        tmem.scan_memory_vs_eps([0.0, 0.1], 0.02, **ck)
+        out = tmem.scan_memory_vs_eps([0.0, 0.1], 0.02, **ck)
+    else:
+        psi0 = create_initial_state(4, chi=4, **CPU)
+        ref = tos.OpenSystemEvolution(_kicked(4, 4)[1], 0.1).evolve_ensemble(
+            psi0, 2, 3)[0]
+        out = tos.OpenSystemEvolution(_kicked(4, 4)[1], 0.1).evolve_ensemble(
+            psi0, 2, 3, mesh=tsw.BatchMesh(("cpu",) * 2))[0]
+        ref, out = ref["per_trajectory"] | ref, out["per_trajectory"] | out
+    for k, v in ref.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(out[k], v, err_msg=k)
+
+
 @pytest.mark.parametrize("call,err,match", [
-    (lambda: tmem.scan_memory_lifetime([0.02], L=6, n_periods=2, chi=8,
-                                       n_trajectories=2, chunk_size=-1, **CPU),
+    (lambda tmp: tmem.scan_memory_lifetime([0.02], L=6, n_periods=2, chi=8,
+                                           n_trajectories=2, chunk_size=-1,
+                                           **CPU),
      ValueError, "chunk_size"),
-    (lambda: tmem.scan_memory_lifetime([], L=6, n_periods=2, chi=8,
-                                       n_trajectories=2, **CPU),
+    (lambda tmp: tmem.scan_memory_lifetime([], L=6, n_periods=2, chi=8,
+                                           n_trajectories=2, **CPU),
      ValueError, "empty batch"),
-    (lambda: tmem.scan_memory_lifetime([0.02], L=6, n_periods=2, chi=8,
-                                       mesh=object(), **CPU),
-     NotImplementedError, "'Scale-out'"),
-    (lambda: tmem.scan_memory_vs_eps([0.0], 0.02, L=6, n_periods=2, chi=8,
-                                     checkpoint_dir="unused", **CPU),
-     NotImplementedError, "'Utilities'"),
-    (lambda: tos.OpenSystemEvolution(_kicked(4, 4)[1], 0.1).evolve_ensemble(
-        create_initial_state(4, chi=4, **CPU), 2, 2, mesh=object()),
-     NotImplementedError, "'Scale-out'"),
-])
-def test_bad_arguments_and_unported_options_raise(call, err, match):
+    (lambda tmp: _ported("mesh", tmp), None, None),
+    (lambda tmp: _ported("checkpoint", tmp), None, None),
+    (lambda tmp: _ported("ensemble", tmp), None, None),
+], ids=["<lambda>-ValueError-chunk_size", "<lambda>-ValueError-empty batch",
+        "<lambda>-NotImplementedError-'Scale-out'0",
+        "<lambda>-NotImplementedError-'Utilities'",
+        "<lambda>-NotImplementedError-'Scale-out'1"])
+def test_bad_arguments_and_unported_options_raise(call, err, match, tmp_path):
+    """Bad arguments raise; the mesh and checkpoint options, which raised
+    before they were ported, reproduce the plain runs (``_ported``)."""
+    if err is None:
+        call(tmp_path)
+        return
     with pytest.raises(err, match=match):
-        call()
+        call(tmp_path)
 
 
 def test_cli_memory_diagram_on_the_cpu_writes_the_figure(tmp_path, monkeypatch):

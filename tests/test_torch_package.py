@@ -18,7 +18,8 @@ from timecrystal_tpu_torch.core import gates, mps, observables, truncate
 from timecrystal_tpu_torch.dynamics import ground_state, open_system, tdvp, tebd
 from timecrystal_tpu_torch.models import kicked_ising, long_range
 from timecrystal_tpu_torch.ops import cuda_build
-from timecrystal_tpu_torch.parallel import sweep
+from timecrystal_tpu_torch.parallel import multihost, site_shard, sweep
+from timecrystal_tpu_torch.utils import checkpoint
 
 ENTRY_POINTS = [
     mps.product_state, mps.create_initial_state, gates.gate_from_numpy,
@@ -43,7 +44,10 @@ ENTRY_POINTS = [
     open_system.LindbladEvolution, open_system.density_mps_from_product,
     open_system.vec_identity_mps, memory.memory_rows,
     memory.scan_memory_lifetime, memory.scan_memory_vs_eps,
-    memory.generate_memory_figure,
+    memory.generate_memory_figure, sweep.evolve_batch_sharded,
+    sweep.default_mesh, multihost.evolve_batch_multihost,
+    multihost.disorder_ensemble_multihost, multihost.global_mesh,
+    site_shard.evolve_floquet_sharded, checkpoint.load_state,
 ]
 
 REPO = Path(__file__).resolve().parents[1]
@@ -51,7 +55,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax():
     """Importing every module of the port, in a fresh interpreter, pulls in
-    neither jax nor the JAX package (it must run where JAX is absent)."""
+    neither jax nor the JAX package (it must run where JAX is absent); the
+    walk reaches the checkpoint, profiling, multihost and site-shard
+    modules."""
     code = """
 import importlib, pkgutil, sys
 import timecrystal_tpu_torch as pkg
@@ -62,6 +68,11 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "timecrystal_tpu"))
 print(len(names), bad)
 assert len(names) >= 12, names
+new = {"timecrystal_tpu_torch.utils.checkpoint",
+       "timecrystal_tpu_torch.utils.profiling",
+       "timecrystal_tpu_torch.parallel.multihost",
+       "timecrystal_tpu_torch.parallel.site_shard"}
+assert new <= set(names), new - set(names)
 assert not bad, bad
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -141,6 +152,24 @@ def test_default_device_never_falls_back_to_the_cpu():
         return
     with pytest.raises((AssertionError, RuntimeError)):
         mps.create_initial_state(4)
+
+
+def test_scaleout_meshes_default_to_the_card():
+    """The meshes of the scale-out entry points are CUDA devices unless the
+    caller names another; without a card they raise instead of falling
+    back to the CPU, and mesh='auto' is no mesh."""
+    if torch.cuda.is_available():
+        assert all(d.type == "cuda" for d in sweep.default_mesh().devices)
+        assert multihost.global_mesh().devices[0].type == "cuda"
+        return
+    for make in (sweep.default_mesh, multihost.global_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert sweep.default_mesh("cpu").devices == (torch.device("cpu"),)
+    assert multihost.global_mesh("cpu").world == 1
+    # mesh='auto' shards only over several CUDA devices
+    assert sweep.resolve_mesh("auto", "cpu") is None
+    assert sweep.resolve_mesh("auto", "cuda") is None
 
 
 def test_top_level_exports_the_ported_names():

@@ -71,12 +71,14 @@ def test_stage_tp_pins_jacobi_on_cuda_only():
 
 @pytest.mark.parametrize("arg", ["checkpoint_dir", "mesh", "cap_svd_method",
                                  "correlation_site"])
-def test_unported_arguments_raise(arg):
-    """evolve_batch_auto's options that are not ported raise naming their
-    ROADMAP item.  ``cap_svd_method`` is ported: at L=4 the cap (chi 4) is
-    the full rank, so the run with the cap chunks on 'jacobi_core' gives
-    the traces of the run without it to 1e-8.  ``correlation_site`` is
-    ported: it adds zz_corr and leaves every other trace as it was."""
+def test_unported_arguments_raise(arg, tmp_path):
+    """evolve_batch_auto's options, all ported now.  ``cap_svd_method``: at
+    L=4 the cap (chi 4) is the full rank, so the run with the cap chunks
+    on 'jacobi_core' gives the traces of the run without it to 1e-8.
+    ``correlation_site`` adds zz_corr and leaves every other trace as it
+    was.  ``checkpoint_dir`` and a two-device CPU ``mesh`` (three rows, so
+    one padded) give the traces and schedule of the plain run bit for
+    bit."""
     spec = tsw.SweepSpec(L=4, chi=4, n_periods=1, dtype="float64")
     args = (np.zeros((1, 4)), np.ones(1), tsw._basis_indices(4, "neel"))
     if arg == "cap_svd_method":
@@ -104,8 +106,19 @@ def test_unported_arguments_raise(arg):
         for k in ref:
             np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsw.evolve_batch_auto(*args, spec, device="cpu", **{arg: 1})
+    spec = spec._replace(n_periods=4, theta=0.9 * np.pi)
+    args = (np.stack([np.zeros(4), np.full(4, 0.2), np.full(4, -0.1)]),
+            np.ones(3), args[2])
+    opt = ({"checkpoint_dir": str(tmp_path / "ck")} if arg == "checkpoint_dir"
+           else {"mesh": tsw.BatchMesh(("cpu", "cpu"))})
+    ref, ref_info = tsw.evolve_batch_auto(*args, spec, chi_start=2,
+                                          chunk_periods=2, device="cpu")
+    out, info = tsw.evolve_batch_auto(*args, spec, chi_start=2,
+                                      chunk_periods=2, device="cpu", **opt)
+    assert info["chi_escalations"] == ref_info["chi_escalations"]
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
 
 
 def test_draw_disorder_batch_is_seeded_and_bounded():

@@ -76,13 +76,24 @@ def fit_memory_lifetime(times, envelope, floor: float = 0.05,
     return float(-1.0 / slope)
 
 
-def _refuse_unported(mesh, checkpoint_dir) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet (ROADMAP.md queue 1, "
-                                  "'Scale-out')")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir is not ported yet (ROADMAP.md "
-                                  "queue 1, 'Utilities')")
+def _make_checkpointer(checkpoint_dir, fingerprint_src):
+    """SweepCheckpointer (or None) of a chunked memory scan, fingerprinted
+    by ``fingerprint_src`` (axes, model parameters, chunking).  Refused in
+    a multi-process run: the ranks would race the same chunk and manifest
+    files."""
+    if checkpoint_dir is None:
+        return None
+    from ..parallel.multihost import process_count
+    from ..utils.checkpoint import SweepCheckpointer, fingerprint
+
+    if process_count() > 1:
+        raise ValueError(
+            "checkpoint_dir is not supported in a multi-process run: "
+            "every process would race the same chunk/manifest files.  Run "
+            "without checkpointing, or checkpoint per-slice single-process "
+            "sweeps.")
+    return SweepCheckpointer(checkpoint_dir,
+                             fingerprint=fingerprint(*fingerprint_src))
 
 
 def _x_plus_state(L: int, chi: int, dtype=torch.complex64, device="cuda"):
@@ -122,8 +133,8 @@ def disorder_rows(L: int, h_over_J: float, J: float, disorder_seed: int,
 
 def memory_rows(gamma_dt, noise, *, J: float, tau: float, chi: int,
                 n_periods: int, h_rows=None, thetas=np.pi, start: str = "neel",
-                chunk_size: int | None = None, device="cuda",
-                dtype=torch.complex64) -> Dict[str, np.ndarray]:
+                chunk_size: int | None = None, mesh=None, checkpointer=None,
+                device="cuda", dtype=torch.complex64) -> Dict[str, np.ndarray]:
     """The stochastic dephasing channel on every row; host numpy traces
     [rows, n_periods, ...] (``_evolve_stochastic_scan``'s keys).
 
@@ -133,13 +144,19 @@ def memory_rows(gamma_dt, noise, *, J: float, tau: float, chi: int,
     Floquet gates are built from them.  ``start`` is 'neel' or 'x_plus'.
     Truncation: no chi cap beyond ``chi``, svd_min 1e-7 (the JAX package's
     memory scans).  ``chunk_size`` None or 0 evaluates the rows as one
-    batch; a positive value in chunks of that many rows.
+    batch; a positive value in chunks of that many rows.  ``mesh`` (a
+    ``parallel.sweep.BatchMesh``, or 'auto': ``parallel.sweep.resolve_mesh``)
+    shards each chunk's rows over its devices and ranks
+    (``parallel.sweep.map_rows``); ``checkpointer`` (a
+    ``utils.checkpoint.SweepCheckpointer``) loads the chunks it holds and
+    saves each new one.
     """
     from ..core.mps import create_initial_state
     from ..core.truncate import TruncParams
     from ..dynamics.open_system import _evolve_stochastic_scan
     from ..dynamics.tebd import to_host
     from ..models.kicked_ising import make_floquet_gates
+    from ..parallel.sweep import BatchMesh, map_rows, resolve_mesh
 
     noise = np.asarray(noise)
     gamma_dt = np.asarray(gamma_dt, float)
@@ -152,25 +169,37 @@ def memory_rows(gamma_dt, noise, *, J: float, tau: float, chi: int,
                          "has zero rows")
     real = dtype.to_real()
     tp = TruncParams(chi_max=0, svd_min=1e-7)
-    psi0 = (create_initial_state(L, "neel", chi=chi, dtype=dtype, device=device)
-            if start == "neel" else _x_plus_state(L, chi, dtype, device))
-    thetas = thetas if np.ndim(thetas) == 0 else np.asarray(thetas, float)
+    mesh = resolve_mesh(mesh, device) or BatchMesh((device,))
+    rows = {"gamma_dt": gamma_dt, "noise": noise}
+    if h_rows is not None:
+        rows["h"] = np.asarray(h_rows)
+    if np.ndim(thetas) != 0:
+        rows["thetas"] = np.asarray(thetas, float)
 
-    def gates(lo, hi):
-        h = (torch.zeros(L, dtype=torch.float64, device=device) if h_rows is None
-             else torch.as_tensor(np.asarray(h_rows)[lo:hi], dtype=real,
-                                  device=device))
-        th = (float(thetas) if np.ndim(thetas) == 0 else
-              torch.as_tensor(thetas[lo:hi], dtype=real, device=device))
-        return make_floquet_gates(J, h, tau, theta=th, dtype=dtype)
+    def run(r, dev):
+        psi0 = (create_initial_state(L, "neel", chi=chi, dtype=dtype, device=dev)
+                if start == "neel" else _x_plus_state(L, chi, dtype, dev))
+        h = (torch.zeros(L, dtype=torch.float64, device=dev) if "h" not in r
+             else torch.as_tensor(r["h"], dtype=real, device=dev))
+        th = (float(thetas) if "thetas" not in r else
+              torch.as_tensor(r["thetas"], dtype=real, device=dev))
+        gates = make_floquet_gates(J, h, tau, theta=th, dtype=dtype)
+        _, tr = _evolve_stochastic_scan(psi0, gates, r["noise"], r["gamma_dt"],
+                                        int(n_periods), tp)
+        return to_host(tr)
 
     cs = int(chunk_size) if chunk_size else B
+    done = checkpointer.completed_chunks() if checkpointer is not None else set()
     parts = []
-    for lo in range(0, B, cs):
-        hi = min(lo + cs, B)
-        _, tr = _evolve_stochastic_scan(psi0, gates(lo, hi), noise[lo:hi],
-                                        gamma_dt[lo:hi], int(n_periods), tp)
-        parts.append(to_host(tr))
+    for ci, lo in enumerate(range(0, B, cs)):
+        if ci in done:
+            parts.append(checkpointer.load_chunk(ci))
+            continue
+        chunk = {k: v[lo:lo + cs] for k, v in rows.items()}
+        part = map_rows(run, chunk, mesh)
+        if checkpointer is not None:
+            checkpointer.save_chunk(ci, part)
+        parts.append(part)
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
@@ -212,20 +241,29 @@ def scan_memory_lifetime(gammas, L: int = 16, h_over_J: float = 0.3,
     tau_bit [G]; eps, h_over_J, L, n_realizations; with ``coherence_leg``
     (the same channel without drive on |+x>, R*T trajectories a gamma,
     noise from ``traj_seed + 1``) sx_coherence [G, n], t2_qubit [G] and
-    t2_analytic = 1 / (2 gamma).  ``mesh`` and ``checkpoint_dir`` are not
-    ported (they raise).
+    t2_analytic = 1 / (2 gamma).  ``mesh`` (a ``parallel.sweep.BatchMesh``)
+    shards the rows (``memory_rows``); ``checkpoint_dir`` persists every
+    chunk of rows, each leg under its own subdirectory (``bit``,
+    ``coherence``), so a killed scan resumes at its first missing chunk; a
+    resume with other parameters raises, and a multi-process run refuses it.
     """
-    _refuse_unported(mesh, checkpoint_dir)
     gammas = np.asarray(gammas, float)
     G, R, T = int(gammas.size), int(n_realizations), int(n_trajectories)
     dt = 2.0 * tau                       # one Floquet period
     theta = (1.0 - eps) * float(np.pi)
     h_rows = disorder_rows(L, h_over_J, J, disorder_seed, R, T, G)
     run = dict(J=J, tau=tau, chi=chi, n_periods=n_periods,
-               chunk_size=chunk_size, device=device, dtype=dtype)
+               chunk_size=chunk_size, mesh=mesh, device=device, dtype=dtype)
+    fp_src = ("memory_gamma", np.round(gammas, 12).tolist(), L,
+              round(h_over_J, 12), round(eps, 12), round(J, 12),
+              round(tau, 12), int(n_periods), R, T, chi, disorder_seed,
+              traj_seed, int(chunk_size or 0), str(dtype))
     tr = memory_rows(np.repeat(gammas * dt, R * T),
                      memory_noise(G * R * T, n_periods, L, traj_seed),
-                     h_rows=h_rows, thetas=theta, **run)
+                     h_rows=h_rows, thetas=theta,
+                     checkpointer=_make_checkpointer(
+                         checkpoint_dir and os.path.join(checkpoint_dir, "bit"),
+                         fp_src + ("bit",)), **run)
     envelope, envelope_std = _envelope_stats(
         tr["sz_sites"].reshape(G, R * T, n_periods, L), L)
     times = (np.arange(n_periods) + 1) * dt
@@ -243,7 +281,11 @@ def scan_memory_lifetime(gammas, L: int = 16, h_over_J: float = 0.3,
         Tc = R * T
         tr2 = memory_rows(np.repeat(gammas * dt, Tc),
                           memory_noise(G * Tc, n_periods, L, traj_seed + 1),
-                          thetas=0.0, start="x_plus", **dict(run, J=0.0))
+                          thetas=0.0, start="x_plus",
+                          checkpointer=_make_checkpointer(
+                              checkpoint_dir
+                              and os.path.join(checkpoint_dir, "coherence"),
+                              fp_src + ("coherence",)), **dict(run, J=0.0))
         sx_mean = tr2["sx_sites"].reshape(G, Tc, n_periods, L).mean(axis=(1, 3))
         out["sx_coherence"] = sx_mean
         out["t2_qubit"] = np.array([fit_memory_lifetime(times, sx_mean[g])
@@ -269,19 +311,27 @@ def scan_memory_vs_eps(eps_values, gamma: float, L: int = 16,
     eps-major, then realization, then trajectory; the noise from
     ``memory_noise(..., traj_seed)``).
 
+    ``mesh`` and ``checkpoint_dir`` as in ``scan_memory_lifetime`` (one
+    leg, so no subdirectory).
+
     Returns {"eps", "times", "envelope" [E, n], "envelope_std", "tau_bit"
     [E], "gamma", "h_over_J", "L", "n_realizations"}.
     """
-    _refuse_unported(mesh, checkpoint_dir)
     eps_values = np.asarray(eps_values, float)
     E, R, T = int(eps_values.size), int(n_realizations), int(n_trajectories)
     dt = 2.0 * tau
+    ck = _make_checkpointer(checkpoint_dir, (
+        "memory_eps", np.round(eps_values, 12).tolist(), round(gamma, 12),
+        L, round(h_over_J, 12), round(J, 12), round(tau, 12),
+        int(n_periods), R, T, chi, disorder_seed, traj_seed,
+        int(chunk_size or 0), str(dtype)))
     tr = memory_rows(np.full(E * R * T, gamma * dt),
                      memory_noise(E * R * T, n_periods, L, traj_seed),
                      h_rows=disorder_rows(L, h_over_J, J, disorder_seed, R, T, E),
                      thetas=np.repeat(np.pi * (1.0 - eps_values), R * T),
                      J=J, tau=tau, chi=chi, n_periods=n_periods,
-                     chunk_size=chunk_size, device=device, dtype=dtype)
+                     chunk_size=chunk_size, mesh=mesh, checkpointer=ck,
+                     device=device, dtype=dtype)
     envelope, envelope_std = _envelope_stats(
         tr["sz_sites"].reshape(E, R * T, n_periods, L), L)
     times = (np.arange(n_periods) + 1) * dt

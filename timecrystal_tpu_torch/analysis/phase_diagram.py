@@ -10,8 +10,10 @@ Left out on purpose (TPU-only in the JAX package): the batch-size routing
 of svd_method (on a CUDA device 'auto' is 'jacobi'), the supervised
 fault-recovery child process, and the chunk size derived from the TPU
 worker's fault envelope (``chunk_size=None`` is one program here).  A
-``mesh`` raises NotImplementedError (ROADMAP.md queue 1, 'Scale-out'), and
-so does ``checkpoint_dir`` ('Utilities').
+``mesh`` (``parallel.sweep.BatchMesh``, or 'auto': every local CUDA device
+when there are several) shards each chunk's points
+(``parallel.sweep.evolve_batch_sharded``); ``sweep_phase_grid``'s
+``checkpoint_dir`` makes the sweep chunked and resumable.
 
 The reference's hard-coded grid is kept: L=16, 80 periods, chi cap 24,
 the seed from params, h/J in [0, 0.8] x T.J in [0.8, 4.0] on a 12 x 10
@@ -29,8 +31,9 @@ import torch
 from ..core.observables import (extract_subharmonic_amplitude,
                                 subharmonic_weight_fraction)
 from ..core.truncate import TruncParams
-from ..parallel.sweep import (SweepSpec, _basis_indices, _refuse_unported,
-                              evolve_batch, phase_grid_batch)
+from ..parallel.sweep import (SweepSpec, _basis_indices, evolve_batch,
+                              evolve_batch_sharded, phase_grid_batch,
+                              resolve_mesh)
 from .detection import score_grid
 
 GRID_HARDCODED = dict(n_sites=16, n_periods=80, max_chi=24,
@@ -52,19 +55,33 @@ def _grid_trunc(params: Dict) -> TruncParams:
 
 
 def _evolve_chunked(h_fields, taus, basis, spec: SweepSpec, thetas,
-                    chunk_size: int | None, device) -> Dict[str, np.ndarray]:
+                    chunk_size: int | None, device, mesh=None,
+                    checkpointer=None) -> Dict[str, np.ndarray]:
     """evolve_batch over the whole batch (``chunk_size`` None or 0) or in
-    chunks of ``chunk_size`` points, concatenated."""
+    chunks of ``chunk_size`` points, concatenated; with a ``mesh`` each
+    chunk is sharded (``evolve_batch_sharded``).  ``checkpointer`` loads
+    the chunks it holds and saves each new one."""
     B = len(taus)
     if chunk_size is not None and int(chunk_size) < 0:
         raise ValueError(f"chunk_size must be >= 0, got {chunk_size}")
     cs = int(chunk_size) if chunk_size else B
+    done = checkpointer.completed_chunks() if checkpointer is not None else set()
     parts = []
-    for lo in range(0, B, cs):
+    for ci, lo in enumerate(range(0, B, cs)):
+        if ci in done:
+            parts.append(checkpointer.load_chunk(ci))
+            continue
         hi = min(lo + cs, B)
-        parts.append(evolve_batch(
-            h_fields[lo:hi], taus[lo:hi], basis, spec,
-            thetas=None if thetas is None else thetas[lo:hi], device=device))
+        th = None if thetas is None else thetas[lo:hi]
+        if mesh is None:
+            part = evolve_batch(h_fields[lo:hi], taus[lo:hi], basis, spec,
+                                thetas=th, device=device)
+        else:
+            part = evolve_batch_sharded(h_fields[lo:hi], taus[lo:hi], basis,
+                                        spec, mesh, thetas=th)
+        if checkpointer is not None:
+            checkpointer.save_chunk(ci, part)
+        parts.append(part)
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
@@ -86,9 +103,18 @@ def sweep_phase_grid(h_values, T_values, params: Dict, mesh=None,
     (or in chunks of ``chunk_size`` points) and score every point.
 
     ``svd_method`` overrides the truncation's 'auto' (on a CUDA device
-    'auto' is the Jacobi kernel, on the CPU LAPACK).  Returns {"records",
-    "hs", "Ts", "traces"}."""
-    _refuse_unported(mesh=mesh, checkpoint_dir=checkpoint_dir)
+    'auto' is the Jacobi kernel, on the CPU LAPACK).  ``mesh``: a
+    ``parallel.sweep.BatchMesh`` or 'auto' (``parallel.sweep.resolve_mesh``).
+
+    ``checkpoint_dir`` makes the sweep chunked and resumable
+    (``utils.checkpoint.SweepCheckpointer``): ``chunk_size`` points a chunk
+    (default: an eighth of the grid), each chunk saved when done, and a
+    later call resumes at the first missing chunk.  The fingerprint holds
+    the fields, taus, basis, spec and chunk size, with svd_method
+    neutralised (a resume may switch SVD methods and keep the chunks done).
+    Refused in a multi-process run: the ranks would race the same files.
+    Returns {"records", "hs", "Ts", "traces"}."""
+    mesh = resolve_mesh(mesh, device)
     hc = GRID_HARDCODED
     tp = _grid_trunc(params)
     if svd_method:
@@ -99,8 +125,25 @@ def sweep_phase_grid(h_values, T_values, params: Dict, mesh=None,
     h_fields, taus, hs, Ts = phase_grid_batch(
         h_values, T_values, spec,
         disorder_seed=int(params.get("RANDOM_SEED", 42)))
-    traces = _evolve_chunked(h_fields, taus, _basis_indices(spec.L, "neel"),
-                             spec, None, chunk_size, device)
+    basis = _basis_indices(spec.L, "neel")
+    ck = None
+    if checkpoint_dir is not None:
+        from ..parallel.multihost import process_count
+        from ..utils.checkpoint import SweepCheckpointer, fingerprint
+
+        if process_count() > 1:
+            raise ValueError(
+                "checkpoint_dir is not supported in a multi-process run: "
+                "every process would race the same chunk/manifest files.  "
+                "Run the sweep without checkpointing, or checkpoint "
+                "per-slice single-process sweeps.")
+        chunk_size = int(chunk_size or max(1, -(-len(taus) // 8)))
+        fp_spec = spec._replace(tp=spec.tp._replace(svd_method="*"))
+        ck = SweepCheckpointer(checkpoint_dir, fingerprint=fingerprint(
+            np.round(h_fields, 12).tolist(), np.round(taus, 12).tolist(),
+            basis.tolist(), fp_spec, chunk_size))
+    traces = _evolve_chunked(h_fields, taus, basis, spec, None, chunk_size,
+                             device, mesh, ck)
     n_stored = traces["loschmidt_echo"].shape[1]
     times = np.arange(n_stored)[None, :] * (2.0 * taus)[:, None]
     records = score_grid(traces, times, hs, Ts, drive_periods=2.0 * taus,
@@ -146,13 +189,17 @@ def sweep_drive_grid(eps_values, h_values, params: Dict, mesh=None,
     global-stream disorder draw).  ``chunk_size`` None or 0 evolves the
     grid as one program, n > 0 in chunks of n points.
 
+    ``mesh``: a ``parallel.sweep.BatchMesh`` or 'auto'
+    (``parallel.sweep.resolve_mesh``); the JAX package's drive grid has no
+    ``checkpoint_dir``, nor has this one.
+
     Returns {"A2T" [n_eps, n_h], "subharmonic_weight", "eps", "hs",
     "records", "traces"}."""
-    _refuse_unported(mesh=mesh)
     spec, h_fields, taus, thetas, eps_f, h_f = drive_grid_batch(
         eps_values, h_values, params, chi_pad, n_sites, n_periods, dtype)
     traces = _evolve_chunked(h_fields, taus, _basis_indices(spec.L, "neel"),
-                             spec, thetas, chunk_size, device)
+                             spec, thetas, chunk_size, device,
+                             resolve_mesh(mesh, device))
 
     tau, n_per = float(taus[0]), spec.n_periods
     times = np.arange(n_per + 1) * (2.0 * tau)
@@ -312,7 +359,7 @@ def generate_range_diagram(params: Dict, out_dir: str = "figures",
     return fig, results
 
 
-def generate_phase_diagram(params: Dict, mesh=None, out_dir: str = "figures",
+def generate_phase_diagram(params: Dict, mesh="auto", out_dir: str = "figures",
                            show_progress: bool = True, device="cuda",
                            dtype=torch.complex64) -> Tuple:
     """Compute, render and save the phase diagram into

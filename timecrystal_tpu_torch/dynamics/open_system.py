@@ -152,13 +152,30 @@ class OpenSystemEvolution:
         average.  Returns (mean traces, times, info): sz_sites, sx_sites
         and their _std [n, L], loschmidt_echo (the mean return fidelity),
         max_chi (the max over trajectories), the derived magnetizations,
-        and per_trajectory max_chi and trunc_err [T, n]."""
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP.md "
-                                      "queue 1, 'Scale-out')")
+        and per_trajectory max_chi and trunc_err [T, n].
+
+        ``mesh`` (a ``parallel.sweep.BatchMesh``, or 'auto':
+        ``parallel.sweep.resolve_mesh``) shards the trajectories over its
+        devices and ranks: the noise of all T trajectories is drawn
+        first (every rank draws the same from a generator seeded alike),
+        then each shard evolves its rows on its device; the padding rows
+        are dropped before any statistic.  ``axis_name`` is the JAX
+        package's and is ignored."""
+        from ..parallel.sweep import BatchMesh, map_rows, resolve_mesh
+
         start = time.perf_counter()
-        _, tr = self._run(psi0, (n_trajectories,), n_periods, ref_state=psi0)
-        tr = to_host(tr)
+        noise = dephasing_noise((n_trajectories,) + psi0.lead
+                                + (n_periods, psi0.L), generator=self.generator)
+
+        def shard(r, dev):
+            p0 = MPS(B=psi0.B.to(dev), lam=psi0.lam.to(dev))
+            return to_host(_evolve_stochastic_scan(
+                p0, self.model.gates.to(dev), r["noise"],
+                self.gamma * self._dt(), n_periods, self.trunc_params,
+                ref_state=p0)[1])
+
+        tr = map_rows(shard, {"noise": noise.numpy()},
+                      resolve_mesh(mesh, psi0.device) or BatchMesh((psi0.device,)))
         sz, sx = tr["sz_sites"], tr["sx_sites"]               # [T, n, L]
         traces = {
             "sz_sites": sz.mean(axis=0), "sz_sites_std": sz.std(axis=0),

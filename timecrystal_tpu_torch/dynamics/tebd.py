@@ -11,6 +11,7 @@ per chunk, not once per period.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, List, Tuple
 
@@ -396,6 +397,14 @@ def evolve_floquet_auto(model_kwargs: dict, state_type: str, n_periods: int,
     also logged at DEBUG level (the record's ``run_info``) for callers that
     only see a wrapper's return value, such as the figures'.
 
+    ``checkpoint_dir``: after each kept chunk the traces so far
+    (``auto_traces.npz``) and then the state (``auto_state.npz``, with the
+    schedule, the realized fields and basis, and a fingerprint of the model
+    arguments, seeded fields, state, truncation and ladder) are written
+    there; a later call with the same arguments resumes after the last
+    chunk on disk, to a shorter or longer ``n_periods``, with the fields
+    and basis pinned from the checkpoint.  Another fingerprint raises.
+
     The JAX version floors the ladder at chi=16 on the TPU, because n < 32
     routes to the Gram/eigh SVD there; here every even n runs the Jacobi
     kernel, so there is no floor.
@@ -403,13 +412,13 @@ def evolve_floquet_auto(model_kwargs: dict, state_type: str, n_periods: int,
     from ..core.mps import pad_mps, product_state, state_basis_indices
     from ..models.kicked_ising import KickedIsingModel
 
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir is not ported yet (ROADMAP.md "
-                                  "queue 1, 'Utilities')")
     tp = trunc_params if isinstance(trunc_params, TruncParams) \
         else TruncParams.from_dict(trunc_params)
     cap = min(tp.chi_max if tp.chi_max else chi_limit, chi_limit)
     chi = min(chi_start, cap)
+    caller_kwargs = dict(model_kwargs)
+    fields_deterministic = ("h_fields" in caller_kwargs
+                            or caller_kwargs.get("disorder_seed") is not None)
 
     start = time.perf_counter()
     model = KickedIsingModel(chi=chi, **model_kwargs)
@@ -425,6 +434,44 @@ def evolve_floquet_auto(model_kwargs: dict, state_type: str, n_periods: int,
     p_done, n_rerun = 0, 0
     escalations: list = []
     chunks: list = []
+
+    wall_prev = 0.0
+    if checkpoint_dir is not None:
+        from ..utils.checkpoint import (atomic_savez, fingerprint, load_state,
+                                        save_state, state_exists)
+        ck_state = os.path.join(checkpoint_dir, "auto_state")
+        ck_traces = os.path.join(checkpoint_dir, "auto_traces.npz")
+        # seedless fields differ per process by construction and are pinned
+        # from the checkpoint; the device may change between run and resume
+        fp = fingerprint(
+            sorted((k, repr(v)) for k, v in caller_kwargs.items()
+                   if k not in ("h_fields", "disorder_seed", "device")),
+            (np.round(np.asarray(model.h_fields), 12).tolist()
+             if fields_deterministic else None),
+            state_type, tp, chi_start, chi_limit, measure_every, chunk_periods,
+            frame, growth, cap_svd_method)
+        if state_exists(ck_state) and os.path.exists(ck_traces):
+            psi, meta = load_state(ck_state, device=model.device,
+                                   dtype=model.dtype)
+            if meta.get("fingerprint") != fp:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir} was written by a run "
+                    "with different parameters (model/state/trunc/ladder); "
+                    "refusing to resume -- delete it or point elsewhere")
+            p_done, chi = int(meta["p_done"]), int(meta["chi"])
+            escalations = list(meta["escalations"])
+            n_rerun = int(meta["n_rerun"])
+            wall_prev = float(meta["wall_time"])
+            model_kwargs["h_fields"] = np.asarray(meta["h_fields"])
+            basis_idx = np.asarray(meta["basis_idx"], np.int32)
+            model = KickedIsingModel(chi=chi, **model_kwargs)
+            psi0 = product_state(basis_idx, chi=chi, dtype=model.dtype,
+                                 device=model.device)
+            with np.load(ck_traces) as z:
+                # the traces are written before the state: at most one
+                # chunk ahead of it, never behind
+                chunks = [{k: z[f"{k}__{i}"] for k in TRACE_KEYS}
+                          for i in range(int(meta["n_chunks"]))]
 
     while p_done < n_periods:
         n = min(chunk_periods, n_periods - p_done)
@@ -463,8 +510,19 @@ def evolve_floquet_auto(model_kwargs: dict, state_type: str, n_periods: int,
         psi = psi_next
         chunks.append(tr)
         p_done += n
+        if checkpoint_dir is not None:
+            atomic_savez(ck_traces, **{f"{k}__{i}": c[k]
+                                       for i, c in enumerate(chunks)
+                                       for k in TRACE_KEYS})
+            save_state(ck_state, psi, {
+                "p_done": p_done, "chi": chi, "escalations": escalations,
+                "n_chunks": len(chunks), "n_rerun": n_rerun,
+                "wall_time": wall_prev + time.perf_counter() - start,
+                "fingerprint": fp,
+                "h_fields": np.asarray(model.h_fields).tolist(),
+                "basis_idx": np.asarray(basis_idx).tolist()})
 
-    wall_time = time.perf_counter() - start
+    wall_time = wall_prev + time.perf_counter() - start
     init = to_host(_initial_observables(product_state(
         basis_idx, chi=chi, dtype=model.dtype, device=model.device)))
     if chunks:

@@ -49,6 +49,12 @@ class FloquetGates:
     # (left = site 0's field, right = site L-1's field); None when open
     boundary_gate: torch.Tensor | None = None
 
+    def to(self, device) -> "FloquetGates":
+        """The same gates on ``device``."""
+        return FloquetGates(
+            self.bond_gates.to(device), self.kick.to(device),
+            None if self.boundary_gate is None else self.boundary_gate.to(device))
+
 
 def make_floquet_gates(J, h_fields: torch.Tensor, tau, theta=np.pi,
                        dtype=torch.complex64, bc: str = "open") -> FloquetGates:

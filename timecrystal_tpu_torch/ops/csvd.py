@@ -17,9 +17,13 @@ Port of ``timecrystal_tpu/ops/csvd.py``.  SVD methods:
   * ``'auto'``: ``'native'`` for CPU tensors, ``'jacobi'`` otherwise.  The
     JAX package's ``'auto'`` picks a Gram/eigh SVD on the TPU only because
     that backend has no SVD.
-
-The Gram/eigh method names are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item: nothing reroutes silently.
+  * ``'gram_eigh'``, ``'gram_eigh_gs'``: aliases of what ``'auto'`` resolves
+    to on the tensor's device (``'native'`` on the CPU, ``'jacobi'`` --
+    kernel 1 or 2 -- on CUDA).  The JAX package's Gram/eigh SVDs exist only
+    because the TPU backend has no complex SVD; an alias never reaches
+    cuSOLVER, whose junk small sigmas would feed the chi-staged escalation
+    (``dynamics.tebd._stage_decision``).  In ``heigh`` both are aliases of
+    ``'native'``, its only method.
 
 ``heigh`` / ``hermitian_invsqrt`` / ``cqr_tall`` (TDVP's canonical splits)
 use ``torch.linalg.eigh`` on every device; the JAX package's real-embedded
@@ -32,11 +36,7 @@ import torch
 
 from .jacobi_svd import jacobi_core, jacobi_proj, jacobi_sv, jacobi_svd
 
-_ALIASES = "ROADMAP.md queue 1, 'csvd and the Gram/eigh method names'"
-_NOT_PORTED = {
-    "gram_eigh": _ALIASES,
-    "gram_eigh_gs": _ALIASES,
-}
+GRAM_EIGH_ALIASES = frozenset({"gram_eigh", "gram_eigh_gs"})
 # The matmul precision of jacobi_core_fast's quintic polar stage in
 # complex64 (complex128 keeps 'highest').  The JAX package runs it as
 # single-pass bf16 on the TPU.  On the H100 cuBLAS runs complex64 matmuls on
@@ -47,12 +47,9 @@ _NOT_PORTED = {
 FAST_QUINTIC_PRECISION = "tf32"
 
 
-def _resolve(method: str, x: torch.Tensor, what: str) -> str:
-    if method == "auto":
+def _resolve(method: str, x: torch.Tensor) -> str:
+    if method == "auto" or method in GRAM_EIGH_ALIASES:
         method = "native" if x.device.type == "cpu" else "jacobi"
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{what} method {method!r} is not ported yet: {_NOT_PORTED[method]}")
     return method
 
 
@@ -64,7 +61,7 @@ def csvd_topk(theta: torch.Tensor, k: int, method: str = "auto",
     projection leak.  ``jacobi_sweeps``: sweep cap of the Jacobi methods,
     0 = dtype default."""
     m, n = theta.shape[-2:]
-    method = _resolve(method, theta, "csvd_topk")
+    method = _resolve(method, theta)
     sweeps = jacobi_sweeps or None
     if (method in ("jacobi_proj", "jacobi_core", "jacobi_core_fast")
             and (k % 2 or k > min(m, n))):
@@ -106,7 +103,7 @@ def csvd(theta: torch.Tensor, method: str = "auto"):
     'native' returns LAPACK's thin shapes (U [..., m, min], Vh [..., min, n]);
     'jacobi' returns ``jacobi_svd``'s (U [..., m, n], Vh [..., n, n]), as the
     JAX package does."""
-    method = _resolve(method, theta, "csvd")
+    method = _resolve(method, theta)
     if method == "jacobi":
         return jacobi_svd(theta)
     if method == "native":
@@ -117,10 +114,8 @@ def csvd(theta: torch.Tensor, method: str = "auto"):
 def heigh(G: torch.Tensor, method: str = "auto"):
     """Complex Hermitian eigendecomposition G = V diag(w) V^H, w ascending,
     batched over leading axes."""
-    method = "native" if method == "auto" else method
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"heigh method {method!r} is not ported yet: {_NOT_PORTED[method]}")
+    if method == "auto" or method in GRAM_EIGH_ALIASES:
+        method = "native"
     if method != "native":
         raise ValueError(f"unknown heigh method: {method}")
     return torch.linalg.eigh(G)

@@ -7,17 +7,31 @@ version ``vmap``s whole evolutions over the realization axis; here that
 axis R is the MPS's leading batch axis, and ``core.truncate`` folds it into
 the bond axis, so one SVD call takes R * n_bonds matrices (1800 on the
 phase diagram's 120-point grid at L=16).
+
+Scale-out of the batch axis: a ``BatchMesh`` names the devices that share
+it -- this process's devices and, under ``torch.distributed``, this rank of
+the world (``parallel.multihost``).  The batch is padded to a multiple of
+the mesh's device count with copies of realization 0, every device evolves
+its shard independently, and the host traces are joined (across ranks, one
+all-gather) with the padding dropped.  Each shard's Jacobi SVD calls run
+their own batch-max sweep exit (no collective per sweep), so on the card a
+sharded run differs from an unsharded one at the float32 class (up to ~3e-5
+sigma_max at tol 1e-6); on the CPU, where 'native' LAPACK runs, the two are
+equal bit for bit.
 """
 
 from __future__ import annotations
 
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..core.mps import pad_mps, product_state
+from ..core.mps import MPS, pad_mps, product_state
 from ..core.observables import (add_derived_magnetization,
                                 extract_subharmonic_amplitude)
 from ..core.truncate import PROJECTED_SVD_METHODS, TruncParams
@@ -25,6 +39,110 @@ from ..dynamics.tebd import (_next_chi, _stage_decision, _stage_err_tol,
                              _trace_keys, evolve_floquet_scan, to_host)
 from ..models.kicked_ising import draw_disorder_batch, make_floquet_gates
 from ..ops.fft import batched_subharmonic_amplitude
+
+
+@dataclass(frozen=True)
+class BatchMesh:
+    """The devices that share the batch axis: ``devices`` of this process
+    and, under ``torch.distributed``, this ``rank`` of ``world`` processes
+    (each holding as many devices; every rank makes the same call).
+    ``backend`` is the process group's ('gloo' or 'nccl'), None alone."""
+
+    devices: tuple
+    rank: int = 0
+    world: int = 1
+    backend: str | None = None
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a BatchMesh needs at least one device")
+        object.__setattr__(self, "devices",
+                           tuple(torch.device(d) for d in self.devices))
+
+    @property
+    def size(self) -> int:
+        """Devices on the batch axis over every rank."""
+        return self.world * len(self.devices)
+
+
+def default_mesh(device="cuda") -> BatchMesh:
+    """A mesh over the local CUDA devices (``device`` 'cuda'), or over the
+    one ``device`` named."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("default_mesh: no CUDA device")
+        return BatchMesh(tuple(torch.device("cuda", i) for i in range(n)))
+    return BatchMesh((dev,))
+
+
+def resolve_mesh(mesh, device):
+    """A ``mesh`` argument: 'auto' is ``default_mesh()`` when ``device`` is
+    CUDA and there are several CUDA devices, else None (one device);
+    anything else as given."""
+    if not (isinstance(mesh, str) and mesh == "auto"):
+        return mesh
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
+        return default_mesh()
+    return None
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _pad_rows(x: np.ndarray, rows: int) -> np.ndarray:
+    """``x`` [R, ...] padded to ``rows`` rows with copies of row 0."""
+    pad = rows - x.shape[0]
+    return x if pad == 0 else np.concatenate(
+        [x, np.repeat(x[:1], pad, axis=0)])
+
+
+def _local_rows(mesh: BatchMesh, R: int):
+    """(padded global row count, [(device, lo, hi)] of this process's
+    shards): R padded to a multiple of the mesh size, rank r owning the
+    r-th equal block, split evenly over its devices."""
+    per = -(-R // mesh.size)
+    lo0 = mesh.rank * per * len(mesh.devices)
+    return per * mesh.size, [(d, lo0 + j * per, lo0 + (j + 1) * per)
+                             for j, d in enumerate(mesh.devices)]
+
+
+def _map_devices(fn, args: list, devices: list) -> list:
+    """[fn(a, d)]: one thread a device when several CUDA devices share the
+    work (each enqueues on its own device), in order otherwise."""
+    if len(set(devices)) > 1 and all(d.type == "cuda" for d in devices):
+        with ThreadPoolExecutor(len(devices)) as ex:
+            return list(ex.map(fn, args, devices))
+    return [fn(a, d) for a, d in zip(args, devices)]
+
+
+def _join_ranks(tree: dict, mesh: BatchMesh | None) -> dict:
+    """Host arrays [local rows, ...] of every rank joined on the row axis
+    (one all-gather); as given without other ranks."""
+    if mesh is None or mesh.world == 1:
+        return tree
+    from .multihost import gather
+
+    return gather(tree)
+
+
+def map_rows(fn, rows: dict, mesh: BatchMesh) -> dict:
+    """The host traces of ``fn`` over the rows of ``rows`` (host arrays
+    [R, ...] of equal R) sharded over ``mesh``: the rows padded with copies
+    of row 0 to a multiple of the mesh size, each local shard evaluated as
+    ``fn({name: part}, device)`` (host numpy arrays [shard, ...] back), the
+    shards and ranks joined and the padding dropped."""
+    R = len(next(iter(rows.values())))
+    R_pad, shards = _local_rows(mesh, R)
+    padded = {k: _pad_rows(np.asarray(v), R_pad) for k, v in rows.items()}
+    parts = _map_devices(fn, [{k: v[lo:hi] for k, v in padded.items()}
+                              for _, lo, hi in shards],
+                         [d for d, _, _ in shards])
+    out = _join_ranks({k: np.concatenate([p[k] for p in parts])
+                       for k in parts[0]}, mesh)
+    return {k: v[:R] for k, v in out.items()}
 
 
 class SweepSpec(NamedTuple):
@@ -48,16 +166,6 @@ def _basis_indices(L: int, state_type: str) -> np.ndarray:
     if state_type == "all_down":
         return np.ones(L, np.int32)
     raise ValueError(f"Unknown state type for sweeps: {state_type}")
-
-
-def _refuse_unported(**options) -> None:
-    """Raise NotImplementedError for an option of the JAX package's
-    ensembles that is not ported yet, naming its ROADMAP.md item."""
-    items = {"checkpoint_dir": "Utilities", "mesh": "Scale-out"}
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md "
-                                      f"queue 1, '{items[name]}')")
 
 
 def _with_initial_row(cat: dict, basis: np.ndarray,
@@ -173,7 +281,8 @@ def evolve_batch(h_fields, taus, basis_indices, spec: SweepSpec,
 
 def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
                       chi_start: int = 32, chunk_periods: int = 5,
-                      checkpoint_dir: str | None = None, mesh=None,
+                      checkpoint_dir: str | None = None,
+                      mesh: BatchMesh | None = None,
                       axis_name: str = "batch", growth: float = 2.0,
                       cap_svd_method: str | None = None,
                       correlation_site: int | None = None,
@@ -193,56 +302,133 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
 
     ``correlation_site=i`` adds ``zz_corr [R, n_periods+1, L]``.
 
+    ``checkpoint_dir``: after each kept chunk its traces
+    (``batch_auto_chunks/chunk_NNNNN.npz``) and then the state
+    (``batch_auto_state.npz``, with the schedule and a fingerprint of the
+    fields, taus, basis, spec, ladder and mesh layout) are written there; a
+    later call with the same arguments resumes after the last chunk on
+    disk, to a shorter or longer ``n_periods``.  Another fingerprint
+    raises.  (The JAX package also reads its older single-file trace
+    layout; the port never wrote it.)
+
+    ``mesh`` (a ``BatchMesh``): the batch is padded to a multiple of the
+    mesh size with copies of realization 0 and sharded; every shard
+    evolves its chunk on its device, the chunk's decision data of every
+    shard and rank are joined on the host, so the schedule is the same
+    everywhere, and every rank returns the full traces (the padding
+    dropped).  Under ``torch.distributed`` each rank checkpoints its own
+    rows under ``checkpoint_dir/rank_NNNN``; a resume needs the same
+    layout.  ``axis_name`` is the JAX package's and is ignored.
+
     ``h_fields`` [R, L] and ``taus`` [R] (numpy or tensors) are cast to the
-    spec's real dtype on ``device``.  Returns (traces, info): host numpy
-    traces [R, n_periods+1, ...] (t=0 row prepended) and info with
-    wall_time, chain_periods_per_second, chi_pad_used, chi_escalations,
-    n_rerun_periods.
+    spec's real dtype on ``device`` (or the mesh's devices).  Returns
+    (traces, info): host numpy traces [R, n_periods+1, ...] (t=0 row
+    prepended) and info with wall_time, chain_periods_per_second,
+    chi_pad_used, chi_escalations, n_rerun_periods.
 
     The JAX version floors chi at 16 on the TPU, because n = 2 chi < 32
     routes to the Gram/eigh SVD there; this port sends every even n to the
     Jacobi kernel, so it has no floor.
     """
-    _refuse_unported(checkpoint_dir=checkpoint_dir, mesh=mesh)
-    device = torch.device(device)
     cdtype, rdtype = _working_dtypes(spec)
     err_tol = _stage_err_tol(cdtype, spec.tp.svd_min, spec.L - 1)
-    h = torch.as_tensor(h_fields, dtype=rdtype, device=device)
-    taus_t = torch.as_tensor(taus, dtype=rdtype, device=device)
-    R, L = h.shape
+    h_np, taus_np = _host(h_fields), _host(taus)
     basis = np.asarray(basis_indices)
+    R_out, L = h_np.shape
+    if mesh is None:
+        R, shards = R_out, [(torch.device(device), 0, R_out)]
+    else:
+        R, shards = _local_rows(mesh, R_out)
+    devices = [d for d, _, _ in shards]
+    h_pad, taus_pad = _pad_rows(h_np, R), _pad_rows(taus_np, R)
     cap = min(spec.chi, spec.tp.chi_max) if spec.tp.chi_max else spec.chi
     chi = min(chi_start, cap)
     n_periods = spec.n_periods
+    keys = _trace_keys(correlation_site)
 
     start = time.perf_counter()
-    gates = make_floquet_gates(spec.J, h, taus_t, theta=spec.theta,
-                               dtype=cdtype)
+    gates = [make_floquet_gates(
+        spec.J, torch.as_tensor(h_pad[lo:hi], dtype=rdtype, device=d),
+        torch.as_tensor(taus_pad[lo:hi], dtype=rdtype, device=d),
+        theta=spec.theta, dtype=cdtype) for d, lo, hi in shards]
 
     def fresh(c):
-        return product_state(np.broadcast_to(basis, (R, L)), chi=c,
-                             dtype=cdtype, device=device)
+        return [product_state(np.broadcast_to(basis, (hi - lo, L)), chi=c,
+                              dtype=cdtype, device=d) for d, lo, hi in shards]
+
+    def pad_all(states, c):
+        return [pad_mps(p, c) for p in states]
 
     psi = fresh(chi)
     psi0 = psi
     p_done, n_rerun = 0, 0
     escalations: list = []
     chunks: list = []
+
+    wall_prev = 0.0
+    if checkpoint_dir is not None:
+        from ..utils.checkpoint import (atomic_savez, fingerprint, load_state,
+                                        save_state, state_exists)
+        if mesh is not None and mesh.world > 1:
+            checkpoint_dir = os.path.join(checkpoint_dir,
+                                          f"rank_{mesh.rank:04d}")
+        ck_state = os.path.join(checkpoint_dir, "batch_auto_state")
+        ck_chunks = os.path.join(checkpoint_dir, "batch_auto_chunks")
+
+        def chunk_path(i):
+            return os.path.join(ck_chunks, f"chunk_{i:05d}.npz")
+
+        fp = fingerprint(
+            spec._replace(n_periods=0), np.round(h_np, 12).tolist(),
+            np.round(taus_np, 12).tolist(), basis.tolist(), chi_start, growth,
+            chunk_periods, cap_svd_method, correlation_site,
+            None if mesh is None else (mesh.world, mesh.rank, mesh.size))
+        if state_exists(ck_state):
+            state, meta = load_state(ck_state, device="cpu", dtype=cdtype)
+            if meta.get("fingerprint") != fp:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_dir} was written by a run "
+                    "with different parameters (fields/taus/spec/ladder/"
+                    "mesh); refusing to resume -- delete it or point "
+                    "elsewhere")
+            off = shards[0][1]
+            psi = [MPS(B=state.B[lo - off:hi - off].to(d),
+                       lam=state.lam[lo - off:hi - off].to(d))
+                   for d, lo, hi in shards]
+            p_done, chi = int(meta["p_done"]), int(meta["chi"])
+            escalations = list(meta["escalations"])
+            n_rerun = int(meta["n_rerun"])
+            wall_prev = float(meta["wall_time"])
+            psi0 = fresh(chi)
+            # chunk files are written before the state: every chunk the
+            # state counts is on disk (a later one is recomputed)
+            chunks = []
+            for i in range(int(meta["n_chunks"])):
+                with np.load(chunk_path(i)) as z:
+                    chunks.append({k: z[k] for k in keys})
+
     while p_done < n_periods:
         n = min(chunk_periods, n_periods - p_done)
         if cap_svd_method and chi >= cap:
             tp = spec.tp._replace(svd_method=cap_svd_method)
         else:
-            tp = _stage_tp(spec.tp, device)
+            tp = _stage_tp(spec.tp, devices[0])
             if chi < cap and tp.svd_method in PROJECTED_SVD_METHODS:
                 # below the cap escalation reads trunc_err, which projected
                 # methods report at the noise floor
                 tp = tp._replace(svd_method="jacobi")
-        psi_next, tr = evolve_floquet_scan(psi, gates, n, tp, ref_state=psi0,
-                                           frame=spec.frame,
-                                           correlation_site=correlation_site)
-        tr = to_host(tr)
-        exit_lam = psi_next.lam.cpu().numpy()
+
+        def run(i, d, n=n, tp=tp):
+            p, t = evolve_floquet_scan(psi[i], gates[i], n, tp,
+                                       ref_state=psi0[i], frame=spec.frame,
+                                       correlation_site=correlation_site)
+            return p, dict(to_host(t), exit_lam=p.lam.cpu().numpy())
+
+        outs = _map_devices(run, list(range(len(shards))), devices)
+        psi_next = [p for p, _ in outs]
+        tr = _join_ranks({k: np.concatenate([t[k] for _, t in outs])
+                          for k in outs[0][1]}, mesh)
+        exit_lam = tr.pop("exit_lam")
         # the batch shares one schedule: ANY realization's truncation
         # escalates all; the merged frame's entry/exit error is included
         errs = np.append(np.ravel(tr["trunc_err"]),
@@ -253,33 +439,84 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
             escalations.append({"period": p_done, "from": chi, "to": new_chi})
             n_rerun += n
             chi = new_chi
-            psi = pad_mps(psi, chi)
-            psi0 = pad_mps(psi0, chi)
+            psi = pad_all(psi, chi)
+            psi0 = pad_all(psi0, chi)
             continue
         if ahead and chi < cap and p_done + n < n_periods:
             new_chi = _next_chi(chi, cap, growth)
             escalations.append({"period": p_done + n, "from": chi,
                                 "to": new_chi, "ahead": True})
             chi = new_chi
-            psi_next = pad_mps(psi_next, chi)
-            psi0 = pad_mps(psi0, chi)
+            psi_next = pad_all(psi_next, chi)
+            psi0 = pad_all(psi0, chi)
         psi = psi_next
-        chunks.append(tr)
+        chunks.append({k: tr[k] for k in keys})
         p_done += n
+        if checkpoint_dir is not None:
+            atomic_savez(chunk_path(len(chunks) - 1), **chunks[-1])
+            save_state(ck_state, MPS(B=torch.cat([p.B.cpu() for p in psi]),
+                                     lam=torch.cat([p.lam.cpu() for p in psi])),
+                       {"p_done": p_done, "chi": chi,
+                        "escalations": escalations, "n_chunks": len(chunks),
+                        "n_rerun": n_rerun,
+                        "wall_time": wall_prev + time.perf_counter() - start,
+                        "fingerprint": fp})
 
-    wall_time = time.perf_counter() - start
+    wall_time = wall_prev + time.perf_counter() - start
+    # the slice keeps [R, n_periods] when a resumed checkpoint holds more
     cat = {k: np.concatenate([c[k] for c in chunks], axis=1)[:, :n_periods]
-           for k in _trace_keys(correlation_site)}
+           for k in keys}
     traces = _with_initial_row(cat, basis, correlation_site)
+    traces = {k: v[:R_out] for k, v in traces.items()}
     info = {
         "wall_time": wall_time,
-        "chain_periods_per_second": (R * n_periods / wall_time
+        "chain_periods_per_second": (R_out * n_periods / wall_time
                                      if wall_time > 0 else float("inf")),
         "chi_pad_used": chi,
         "chi_escalations": escalations,
         "n_rerun_periods": n_rerun,
     }
     return traces, info
+
+
+def evolve_batch_sharded(h_fields, taus, basis_indices, spec: SweepSpec,
+                         mesh: BatchMesh | None = None,
+                         axis_name: str = "batch",
+                         correlation_site: int | None = None,
+                         two_time_anchor: int | None = None, thetas=None,
+                         device="cuda") -> dict:
+    """``evolve_batch`` with the realization batch sharded over ``mesh``
+    (default: ``default_mesh(device)``, the local CUDA devices): padded to
+    a multiple of the mesh size with copies of realization 0, each shard
+    evolved by ``evolve_batch`` on its device, the host traces joined and
+    the padding dropped.  A mesh of several ranks routes to
+    ``multihost.evolve_batch_multihost`` (every rank returns the full
+    traces).  ``axis_name`` is the JAX package's and is ignored."""
+    mesh = mesh or default_mesh(device)
+    if mesh.world > 1:
+        from .multihost import evolve_batch_multihost
+
+        return evolve_batch_multihost(
+            h_fields, taus, basis_indices, spec, mesh=mesh,
+            correlation_site=correlation_site,
+            two_time_anchor=two_time_anchor, thetas=thetas)
+    return _evolve_rows(h_fields, taus, basis_indices, spec, mesh,
+                        correlation_site, two_time_anchor, thetas)
+
+
+def _evolve_rows(h_fields, taus, basis_indices, spec, mesh, correlation_site,
+                 two_time_anchor, thetas) -> dict:
+    rows = {"h": _host(h_fields), "taus": _host(taus)}
+    if thetas is not None:
+        rows["thetas"] = _host(thetas)
+
+    def shard(r, d):
+        return evolve_batch(r["h"], r["taus"], basis_indices, spec,
+                            correlation_site=correlation_site,
+                            two_time_anchor=two_time_anchor,
+                            thetas=r.get("thetas"), device=d)
+
+    return map_rows(shard, rows, mesh)
 
 
 def disorder_ensemble(generator: torch.Generator, n_realizations: int,
@@ -297,8 +534,8 @@ def disorder_ensemble(generator: torch.Generator, n_realizations: int,
     ``evolve_batch_auto`` (``chi_start``, ``chunk_periods``,
     ``cap_svd_method``), either with ``correlation_site``;
     ``two_time_anchor`` (``evolve_batch``'s) takes the fixed-chi path only.
-    Returns the traces dict of either."""
-    _refuse_unported(mesh=mesh)
+    A ``mesh`` shards the batch (``evolve_batch_sharded``, or the staged
+    evolution's ``mesh``).  Returns the traces dict of either."""
     if staged and two_time_anchor is not None:
         raise ValueError("two_time_anchor takes the fixed-chi ensemble "
                          "(staged=False)")
@@ -308,11 +545,15 @@ def disorder_ensemble(generator: torch.Generator, n_realizations: int,
     if staged:
         traces, _ = evolve_batch_auto(h, taus, basis, spec,
                                       chi_start=chi_start,
-                                      chunk_periods=chunk_periods,
+                                      chunk_periods=chunk_periods, mesh=mesh,
                                       cap_svd_method=cap_svd_method,
                                       correlation_site=correlation_site,
                                       device=device)
         return traces
+    if mesh is not None:
+        return evolve_batch_sharded(h, taus, basis, spec, mesh,
+                                    correlation_site=correlation_site,
+                                    two_time_anchor=two_time_anchor)
     return evolve_batch(h, taus, basis, spec,
                         correlation_site=correlation_site,
                         two_time_anchor=two_time_anchor, device=device)
