@@ -38,9 +38,12 @@ tests/exact_reference.py.  Phases:
      at the JAX package's compiled-kernel thresholds, with the quintic
      stage's precisions timed and their dense-spectrum defect; kernel 1 on
      this path's shapes against the host loop and the twin, timed; bench.py's
-     settled L=40, chi=256 state (40 merged periods on 'jacobi'), then 10
+     settled L=40, chi=256 state (40 merged periods on 'jacobi'), then 5
      timed periods per SVD method, the 50-period closed-loop gate against
-     'jacobi', and chi=512 on 'jacobi_core';
+     'jacobi', chi=512 on 'jacobi_core', and the exact chi=512 leg
+     (svd_method 'auto': kernel 1 at [20/19, 1024, 1024]) against
+     'jacobi_core' over the same periods; kernel 1 at n = 768 and 1024
+     against the host loop, the twin (complex128) and float64 LAPACK;
   8. the fixed-chi ensemble: the phase diagram's 120-point grid (L=16,
      chi_pad=32, 80 periods) and one 40-point chunk of the drive-strength
      diagram (a kick per realization, chi_pad=48), each with A2T against
@@ -71,7 +74,15 @@ tests/exact_reference.py.  Phases:
      CONFIG chain split 20 + 20 (evolve_floquet_sharded), each against the
      same work in one process; PhaseTimer and device_trace on one window
      chunk;
- 12. the long-range TDVP path against the dense oracle (L=10, chi=32, 6
+ 12. the JAX package's three examples as the port's entry points
+     (timecrystal_tpu_torch.examples): the quickstart's five sections at
+     its widths (the TDVP section 10 of its 16 periods, one of its two
+     realizations) (the single chain and two ensemble members against
+     complex128 on the host CPU), the hires 25 x 20 phase grid as one
+     program and in five checkpointed chunks (its corners against
+     complex128), and the multihost demo's two Gloo ranks sharing the card
+     against one process;
+ 13. the long-range TDVP path against the dense oracle (L=10, chi=32, 4
      periods, theta = pi and the entangling 0.92 pi, the latter also against
      a complex128 CPU run of the same TDVP), then at the interaction-range
      diagram's widths (L=12, chi=48, 10 periods, alpha in {1.5, None};
@@ -85,6 +96,7 @@ one) and the device JSON.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -112,11 +124,32 @@ RANGE = dict(L=12, chi=48, n_periods=10, substeps=2, J=1.0, h=0.3, tau=1.0,
 # FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
 SMS = 132                                    # streaming multiprocessors
+# batches of more elements warm torch.linalg.svd up on one matrix
+LIBRARY_WARM_FULL = 1 << 22
+# torch CPU threads of the references run on the host (_host_threads)
+HOST_REFERENCE_THREADS = 1
 
 
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def _host_threads():
+    """torch's CPU ops on HOST_REFERENCE_THREADS threads for a reference run
+    on the host made of small ops (one chain, a TDVP chain, a figure's
+    chain), where the default pool (one thread a core) spins on the shared
+    host and runs them several times slower.  Batched references (the
+    grids, the memory rows) keep the default pool."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(HOST_REFERENCE_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _timed(fn, reps: int = 1):
@@ -170,13 +203,18 @@ def _event_ms(fn, args_list):
 
 
 def _library_ms(M, reps=3):
-    """torch.linalg.svd of the batch M (mean of ``reps`` calls after one):
-    the yardstick of a sweep kernel (the port never calls it on these
-    paths)."""
+    """torch.linalg.svd of the batch M (mean of ``reps`` calls after a
+    warm-up call): the yardstick of a sweep kernel (the port never calls it
+    on these paths).  Above LIBRARY_WARM_FULL elements the warm-up runs on
+    M's first matrix only, which loads the solver for the shape at 1/B of
+    the batch's seconds."""
     import torch
 
-    return _event_ms(lambda x: torch.linalg.svd(x, full_matrices=False),
-                     [(M,)] * (reps + 1))
+    def svd(x):
+        return torch.linalg.svd(x, full_matrices=False)
+
+    warm = M if M.numel() <= LIBRARY_WARM_FULL else M[:1]
+    return _event_ms(svd, [(warm,)] + [(M,)] * reps)
 
 
 def _tebd_like(gen, B: int, n: int, dtype):
@@ -421,7 +459,7 @@ def phase_kernels():
         # its sweeps, fixed so, are not compared
         th = _tebd_like(gen, 320, n, torch.complex64)
         ((Sk, _), v320, sw320), t_k = _timed(
-            lambda: _kernel1_call(th, polish=n // 2), reps=3)
+            lambda: _kernel1_call(th, polish=n // 2))
         (Sh, _), sw_host320 = _host_loop_sv(th, J._jacobi_sweep_cuda, None, n // 2)
         whole = n <= TWIN320_MAX_N
         sub = slice(None) if whole else slice(None, None, TWIN320_STRIDE)
@@ -469,16 +507,9 @@ def phase_kernels():
         ms = [_event_ms(lambda x: J._jacobi_sweep_cuda(x, variant),
                         [(X.clone(),) for _ in range(6)]) for _ in range(2)]
         twin = _event_ms(J._jacobi_sweep_torch, [(X.clone(),) for _ in range(3)])
-        lib = _library_ms(th)
+        lib = _library_ms(th, reps=1)
         bound, by, f64 = sweep_bound(B, n, n, with_v=False)
-        if variant == "smem":
-            per_sm = J.smem_occupancy(n, n, X.dtype, X.device)
-            layout = (f"{per_sm} CTAs an SM, {-(-B // (per_sm * SMS))} wave(s) of "
-                      f"{per_sm * SMS}")
-        else:
-            size, active = J.cluster_plan(B, n, n, X.dtype, X.device)
-            layout = (f"clusters of {size} CTAs, {active} co-resident, "
-                      f"{-(-B // active)} wave(s)")
+        layout = _layout(B, n, n, variant, X)
         times[(B, n)] = dict(ms=float(np.mean(ms)), plain_ms=twin,
                              bound_ms=bound, bound_by=by, library_ms=lib,
                              variant=variant)
@@ -957,12 +988,14 @@ MATMUL_CLASS = ("matmul / einsum", ("gemm", "gemv", "xmma", "cutlass", "bmm",
 def _profile(fn, classes):
     """torch.profiler over fn(), synchronized: (wall ms, device ms by class,
     launches by class, CUDA runtime synchronize calls).  Kernels no class
-    names go to 'other'."""
+    names go to 'other'.  The CUDA activity alone (kernels and runtime
+    calls): recording every CPU operator as well made the post-processing
+    of one TDVP period take tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1078,7 +1111,7 @@ def phase_tdvp_oracle():
                                                          fitted_couplings)
     from timecrystal_tpu_torch.ops import jacobi_svd as J
 
-    L, chi, alpha, tau, n = 10, 32, 1.3, 0.4, 6
+    L, chi, alpha, tau, n = 10, 32, 1.3, 0.4, 4
 
     def run(theta, dtype, device):
         model = LongRangeKickedIsing(L, 1.0, 0.3, tau, alpha=alpha,
@@ -1112,7 +1145,8 @@ def phase_tdvp_oracle():
             line += " (< 1e-4)"
         else:
             # the same TDVP, complex128 on the CPU with LAPACK splits
-            _, ref, _ = run(theta, torch.complex128, "cpu")
+            with _host_threads():
+                _, ref, _ = run(theta, torch.complex128, "cpu")
             e_sz, e_le = _trace_err(ref, sz, le)
             c_sz, c_le = _trace_err(traces, ref["sz_sites"], ref["loschmidt_echo"])
             bound = (e_sz + 1e-5, e_le + 1e-5)
@@ -1252,15 +1286,18 @@ CLOSED_LOOP_CLASS = {"jacobi_core": (4.7e-4, 1.5e-3),
                      "jacobi_core_fast": (4.7e-4, 1.5e-3),
                      "jacobi_proj": (1.1e-3, 7.5e-4)}
 CLOSED_LOOP_FACTOR = 2.0
-STEADY = dict(n_settle=40, n_steady=10, n_closed=50, n_settle512=10,
-              n_steady512=5)
+# n_steady: 5 of bench.py's 10 timed steady periods (the script's time
+# limit); n_closed: bench.py's 50 closed-loop periods, over which the class
+# was recorded
+STEADY = dict(n_settle=40, n_steady=5, n_closed=50, n_settle512=10,
+              n_steady512=3, n_exact512=2)
 STEADY_METHODS = ("jacobi_core_fast", "jacobi_core", "jacobi_proj", "jacobi")
 # the phase diagram (analysis/phase_diagram.py GRID_HARDCODED with
 # config.txt: SVD_MIN 1e-12, SVD_CUTOFF 1e-7, RANDOM_SEED 42) and one
 # 40-point chunk of its drive-strength diagram (chi_pad 48, T_DRIVE 2)
 GRID = dict(L=16, chi=32, n_periods=80, chi_max=24, svd_min=1e-12,
             trunc_cut=1e-7, h=(0.0, 0.8, 12), T=(0.8, 4.0, 10), seed=42,
-            n_profiled=20, n_reference=4)
+            n_profiled=10, n_reference=4)
 # a grid's points on the card against the same points in complex128 on the
 # host CPU with LAPACK splits, max |d sz| and |d LE|: over the periods before
 # the reference first discards more than GRID_EXACT_TRUNC on a bond
@@ -1282,7 +1319,10 @@ DRIVE = dict(chi=48, eps=(0.0, 0.2, 8), h=(0.0, 0.8, 5))
 # 32); [two-time]'s pairs (2 x 4 points); the channel average (600
 # trajectories, L=4, chi 8); [multihost]'s rank of the phase grid (60
 # points x 8 / 7 bonds); [site-shard]'s 20-site block at chi 64 (10 / 9
-# local bonds) and its boundary bond
+# local bonds) and its boundary bond; the exact leg's chi=512 thetas
+# ([steady-exact-chi512], n = 1024) and the chi-staged ladder's rung above
+# 256 (_next_chi(256, 512, 1.5) = 384, n = 768), 20 even bonds of L=40;
+# [hires]'s one program (500 points x 8 even bonds at chi_pad 32)
 NEW_SHAPES = ((20, 256, 512, 1e-6), (20, 256, 256, 1e-6),
               (960, 64, 64, None), (840, 64, 64, None), (280, 96, 96, None),
               (960, 96, 96, None), (840, 96, 96, None), (32, 64, 64, None),
@@ -1292,7 +1332,22 @@ NEW_SHAPES = ((20, 256, 512, 1e-6), (20, 256, 256, 1e-6),
               (2, 256, 256, None), (6, 64, 64, None), (5, 64, 64, None),
               (64, 64, 64, None), (56, 64, 64, None), (1200, 16, 16, None),
               (600, 16, 16, None), (480, 64, 64, None), (420, 64, 64, None),
-              (10, 128, 128, None), (9, 128, 128, None), (1, 128, 128, None))
+              (10, 128, 128, None), (9, 128, 128, None), (1, 128, 128, None),
+              (20, 768, 768, None), (20, 1024, 1024, None), (4000, 64, 64, None))
+# the odd bond layer beside three of them, one sweep and one call timed:
+# the exact leg's and the rung's 19 odd bonds, and the hires grid's one
+# program (500 points x 7 odd bonds of L=16)
+ODD_LAYER = {(20, 768, 768): 19, (20, 1024, 1024): 19, (4000, 64, 64): 3500}
+# the shapes whose torch.linalg.svd is timed here: this slice's (the
+# earlier shapes' library times were taken in earlier runs and stand in
+# PERF.md; timing them again cost ~45 s of the script's limit)
+LIBRARY_TIMED = set(ODD_LAYER)
+# from this row count up the twin loops run on the batch's first
+# TWIN_SUBSET matrices, beside the device exit over the same matrices (the
+# twin's batch-20 sweep takes seconds at n = 1024); the device exit and the
+# host loop over the kernel, the converged S, the timings and the library
+# run on the whole batch
+TWIN_SUBSET_N, TWIN_SUBSET = 768, 2
 
 
 # the Lindblad superket's shapes (n = 256, the cluster variant): in
@@ -1303,7 +1358,21 @@ NEW_SHAPES = ((20, 256, 512, 1e-6), (20, 256, 256, 1e-6),
 # These shapes are held instead to the twin in complex128 (the same
 # algorithm in exact arithmetic, to 1e-9 sigma_max) and, in complex64, to
 # float64 LAPACK within twice the complex64 library SVD's own distance
-WITNESS_SHAPES = {(3, 256, 256), (2, 256, 256)}
+# (float32 rounding grows with n: the same rule holds at n = 768 and 1024,
+# for the batch's first TWIN_SUBSET matrices).  Their complex128 leg runs
+# kernel 1 and the twin on the complex128 copy of the same input, both held
+# to complex128 LAPACK of it: (1) at jacobi_sv's complex128 exit and cap
+# (tol 1e-14, 24 sweeps), each loop by its own exit, to 1e-9 sigma_max
+# where the value is True (the n = 256 shapes; reported at n = 768 and 1024,
+# where the exit leaves the twin itself ~2e-9 sigma_max from LAPACK on the
+# kept sigma and more on the ~n/2 sigma below 1e-7 sigma_max that the
+# complex64 input's rounding leaves); (2) both loops run to convergence
+# (WITNESS_SWEEPS sweeps, tol 0), to 1e-9 sigma_max of each other and of
+# LAPACK over every sigma, at every shape.  WITNESS_KEPT splits the report
+# at the bench's svd_min
+WITNESS_SHAPES = {(3, 256, 256): True, (2, 256, 256): True,
+                  (20, 768, 768): False, (20, 1024, 1024): False}
+WITNESS_SWEEPS, WITNESS_KEPT = 40, 1e-7
 
 
 def _proj_panels(spectra, B=4, seed=11, unit=False):
@@ -1472,11 +1541,14 @@ def _rows_sv(X, tol, loop, max_sweeps=12):
                          0)[0]
 
 
-def _witness_check(X, Sc, Stc):
-    """WITNESS_SHAPES: kernel 1 against the twin in complex128 (tol 1e-14,
-    cap 24) to 1e-9 sigma_max, and the converged complex64 S of kernel (Sc)
-    and twin (Stc) against float64 LAPACK on the host, the kernel's within
-    twice the distance of complex64 torch.linalg.svd (the witness)."""
+def _witness_check(X, Sc, Stc, exit_gated):
+    """WITNESS_SHAPES: kernel 1 against the twin in complex128 on X's
+    complex128 copy, both against complex128 LAPACK: at jacobi_sv's
+    complex128 exit and cap, to 1e-9 sigma_max if ``exit_gated``, and run to
+    convergence (WITNESS_SWEEPS sweeps), to 1e-9 sigma_max of each other and
+    of LAPACK; then the converged complex64 S of kernel (Sc) and twin (Stc)
+    against float64 LAPACK on the host, the kernel's within twice the
+    distance of complex64 torch.linalg.svd (the witness)."""
     import torch
 
     from timecrystal_tpu_torch.ops import jacobi_svd as J
@@ -1484,23 +1556,70 @@ def _witness_check(X, Sc, Stc):
     X2 = X.to(torch.complex128)
     S64 = torch.linalg.svdvals(X2.cpu()).to(X.device)
     scale = float(S64.max())
+    kept = S64 >= WITNESS_KEPT * scale
 
-    def rel(S):
-        return float((S.double() - S64).abs().max()) / scale
+    def rel(S, T=S64):
+        d = (S.double() - T).abs()
+        return float(d[kept].max()) / scale, float(d.max()) / scale
 
-    Sk2 = _rows_sv(X2, 1e-14, J._sweep_loop, 24)
-    St2 = _rows_sv(X2, 1e-14, functools.partial(
-        J._host_sweep_loop, sweep=J._jacobi_sweep_torch), 24)
-    err2 = float((Sk2 - St2).abs().max()) / float(St2.max())
-    e_k, e_t, e_w = rel(Sc), rel(Stc), rel(torch.linalg.svdvals(X))
+    tol, cap = 1e-14, 24                     # jacobi_sv's complex128 defaults
+    counter = J.sweep_counter(X2.device)
+    c0 = int(counter)
+    Sk_exit = _rows_sv(X2, tol, J._sweep_loop, cap)
+    sw_k = int(counter) - c0
+    Sk_conv = _rows_sv(X2, 0.0, J._sweep_loop, WITNESS_SWEEPS)
+    # one twin loop of WITNESS_SWEEPS sweeps; its S where its own exit (or
+    # the cap) would have ended jacobi_sv's loop is kept on the way
+    threshold, meas, at_exit = J._exit_threshold(tol), [], {}
+
+    def sweep(x):
+        x, m = J._jacobi_sweep_torch(x)
+        meas.append(float(m.amax().to(torch.float32)))
+        if "S" not in at_exit and (meas[-1] < threshold or len(meas) == cap):
+            at_exit.update(S=J._cols_to_sv(x.clone(), 0)[0], sweeps=len(meas))
+        return x, m
+
+    St_conv = _rows_sv(X2, 0.0, functools.partial(J._host_sweep_loop,
+                                                  sweep=sweep), WITNESS_SWEEPS)
+    St_exit, sw_t = at_exit["S"], at_exit["sweeps"]
+    e_exit, e_conv = rel(Sk_exit, St_exit), rel(Sk_conv, St_conv)
+    l_conv = rel(Sk_conv)
+    e_k, e_t, e_w = rel(Sc)[1], rel(Stc)[1], rel(torch.linalg.svdvals(X))[1]
     B, n, m = X.shape
-    print(f"[kernel-1 new shapes] [{B}, {n}, {m}] complex128: S err {err2:.2e} x "
-          f"sigma_max against the twin loop (< 1e-9); complex64 S against "
+    print(f"[kernel-1 new shapes] [{B}, {n}, {m}] complex128 (the same input; "
+          f"{int(kept.sum())} of {S64.numel()} sigma >= {WITNESS_KEPT:.0e} "
+          f"sigma_max, kept / all): at the exit (tol {tol:.0e}, cap {cap}): "
+          f"kernel {sw_k} sweeps, twin {sw_t}; S err {e_exit[0]:.2e} / "
+          f"{e_exit[1]:.2e} x sigma_max against the twin"
+          f"{' (all < 1e-9)' if exit_gated else ''}; from complex128 LAPACK: "
+          f"kernel {rel(Sk_exit)[0]:.2e} / {rel(Sk_exit)[1]:.2e}, twin "
+          f"{rel(St_exit)[0]:.2e} / {rel(St_exit)[1]:.2e}; converged "
+          f"({WITNESS_SWEEPS} sweeps, last twin measure {meas[-1]:.1e}): S err "
+          f"{e_conv[1]:.2e} against the twin, from LAPACK kernel {l_conv[1]:.2e}, "
+          f"twin {rel(St_conv)[1]:.2e} (all < 1e-9); complex64 S against "
           f"float64 LAPACK: kernel {e_k:.2e}, twin {e_t:.2e}, torch.linalg.svd "
           f"(the witness) {e_w:.2e} x sigma_max (kernel < twice the witness)",
           flush=True)
-    _check(err2 < 1e-9 and e_k < 2.0 * e_w,
-           f"S at [{B}, {n}, {m}]: complex128 {err2}, complex64 {e_k} / {e_w}")
+    _check(not exit_gated or e_exit[1] < 1e-9,
+           f"complex128 S at [{B}, {n}, {m}] at the exit: {e_exit}")
+    _check(e_conv[1] < 1e-9 and l_conv[1] < 1e-9,
+           f"converged complex128 S at [{B}, {n}, {m}]: {e_conv}, LAPACK {l_conv}")
+    _check(e_k < 2.0 * e_w, f"complex64 S at [{B}, {n}, {m}]: {e_k} / {e_w}")
+
+
+def _layout(B, n, m, variant, X):
+    """The launch layout of kernel 1 on X [B, n, m]: CTAs an SM and waves
+    (shared memory) or the cluster plan (cluster size, co-resident
+    clusters, waves)."""
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    if variant == "smem":
+        per_sm = J.smem_occupancy(n, m, X.dtype, X.device)
+        return (f"{per_sm} CTAs an SM, {-(-B // (per_sm * SMS))} wave(s) "
+                f"of {per_sm * SMS}")
+    size, active = J.cluster_plan(B, n, m, X.dtype, X.device)
+    return (f"clusters of {size} CTAs, {active} co-resident, "
+            f"{-(-B // active)} wave(s)")
 
 
 def phase_new_shapes():
@@ -1510,8 +1629,11 @@ def phase_new_shapes():
     S against the twin loop (< 1e-5 x sigma_max) once both have converged
     (tol 3e-8, cap 24): at tol 1e-6 both loops stop unconverged, and two
     float32 rounding paths of an unconverged sweep differ in S by more
-    (reported).  Then one sweep and one call timed beside the bound and one
-    torch.linalg.svd of the batch."""
+    (reported).  From TWIN_SUBSET_N rows the twin loops take the batch's
+    first TWIN_SUBSET matrices (the path-tolerance loop beside the device
+    exit over the same matrices).  Then one sweep and one call timed beside
+    the bound and one torch.linalg.svd of the batch (and, for the shapes in
+    ODD_LAYER, one sweep and one call of the odd bond layer's batch)."""
     import torch
 
     from timecrystal_tpu_torch.ops import jacobi_svd as J
@@ -1526,6 +1648,8 @@ def phase_new_shapes():
         else:
             X = _tebd_like(gen, B, n, torch.complex64).conj().resolve_conj()
         variant = J._sv_variant(B, n, m, X.element_size())
+        big = n >= TWIN_SUBSET_N
+        Xs = X[:TWIN_SUBSET].contiguous() if big else X
         counter = J.sweep_counter("cuda:0")
         s0, a0, c0 = int(counter), J.SV_SMEM_LAUNCHES, J.SV_CLUSTER_LAUNCHES
         Sk = _rows_sv(X, tol, J._sweep_loop)
@@ -1534,54 +1658,76 @@ def phase_new_shapes():
             "cluster" if J.SV_CLUSTER_LAUNCHES > c0 else "")
         host, sw_host = _counted_host_loop(J._jacobi_sweep_cuda)
         Sh = _rows_sv(X, tol, host)
+        s1 = int(counter)
+        Sks = _rows_sv(Xs, tol, J._sweep_loop) if big else Sk
+        sw_s = int(counter) - s1 if big else sw
         twin, sw_twin = _counted_host_loop(J._jacobi_sweep_torch)
-        St = _rows_sv(X, tol, twin)
-        err_tol = float((Sk - St).abs().max() / St.max())
+        St = _rows_sv(Xs, tol, twin)
+        err_tol = float((Sks - St).abs().max() / St.max())
         Sc = _rows_sv(X, 3e-8, J._sweep_loop, 24)
-        Stc = _rows_sv(X, 3e-8, functools.partial(
+        Stc = _rows_sv(Xs, 3e-8, functools.partial(
             J._host_sweep_loop, sweep=J._jacobi_sweep_torch), 24)
-        err = float((Sc - Stc).abs().max() / Stc.max())
-        worst = max(worst, float((Sc - Stc).abs().max()))
+        Scs = Sc[:Xs.shape[0]]
+        err = float((Scs - Stc).abs().max() / Stc.max())
+        worst = max(worst, float((Scs - Stc).abs().max()))
         same = bool(torch.equal(Sk, Sh))
+        sub = (f"; twin loops on the first {Xs.shape[0]} matrices (device "
+               f"exit there {sw_s} sweeps)" if big else "")
         print(f"[kernel-1 new shapes] [{B}, {n}, {m}] tol {tol:.0e} ({ran}): sweeps: "
-              f"device exit {sw}, host loop over the kernel {sw_host[0]} (S "
+              f"device exit {sw} ({'the cap of 12' if sw >= 12 else 'the exit'} "
+              f"ended it), host loop over the kernel {sw_host[0]} (S "
               f"identical: {same}), twin loop {sw_twin[0]} (S err {err_tol:.2e} "
-              f"x sigma_max); converged (tol 3e-8, cap 24): S err {err:.2e} x "
-              f"sigma_max against the twin loop"
+              f"x sigma_max){sub}; converged (tol 3e-8, cap 24): S err "
+              f"{err:.2e} x sigma_max against the twin loop"
               f"{' (WITNESS_SHAPES)' if (B, n, m) in WITNESS_SHAPES else ' (< 1e-5)'}",
               flush=True)
         _check(ran == variant, f"[{B}, {n}, {m}] ran {ran!r}, not {variant!r}")
         if (B, n, m) in WITNESS_SHAPES:
-            _witness_check(X, Sc, Stc)
+            _witness_check(Xs, Scs, Stc, WITNESS_SHAPES[(B, n, m)])
         else:
             _check(err < 1e-5, f"S at [{B}, {n}, {m}] differs from the twin: {err}")
         _check(sw == sw_host[0] and same,
                f"device exit at [{B}, {n}, {m}]: {sw} sweeps, host loop "
                f"{sw_host[0]}")
-        _check(abs(sw - sw_twin[0]) <= 1,
-               f"sweeps at [{B}, {n}, {m}]: {sw}, twin {sw_twin[0]}")
+        _check(abs(sw_s - sw_twin[0]) <= 1,
+               f"sweeps at [{B}, {n}, {m}]: {sw_s}, twin {sw_twin[0]}")
+        del Sks, St, Stc, Xs
         ms = [_event_ms(lambda x: J._jacobi_sweep_cuda(x, variant),
                         [(X.clone(),) for _ in range(5)]) for _ in range(2)]
-        call_ms = _event_ms(lambda: _rows_sv(X, tol, J._sweep_loop), [()] * 4)
-        twin_ms = _event_ms(J._jacobi_sweep_torch, [(X.clone(),)] * 3)
-        lib = _library_ms(X, reps=1)        # seconds at batch 960
+        call_ms = _event_ms(lambda: _rows_sv(X, tol, J._sweep_loop),
+                            [()] * (2 if big else 4))
+        twin_ms = _event_ms(J._jacobi_sweep_torch, [(X.clone(),)] * (2 if big else 3))
+        # torch.linalg.svd of the batch, timed for the shapes of LIBRARY_TIMED
+        # (earlier shapes' times stand in PERF.md)
+        lib = (f"{_library_ms(X, reps=1):.3f} ms" if (B, n, m) in LIBRARY_TIMED
+               else "not timed here")
         bound, by, f64 = sweep_bound(B, n, m, with_v=False)
-        if variant == "smem":
-            per_sm = J.smem_occupancy(n, m, X.dtype, X.device)
-            layout = (f"{per_sm} CTAs an SM, {-(-B // (per_sm * SMS))} wave(s) "
-                      f"of {per_sm * SMS}")
-        else:
-            size, active = J.cluster_plan(B, n, m, X.dtype, X.device)
-            layout = (f"clusters of {size} CTAs, {active} co-resident, "
-                      f"{-(-B // active)} wave(s)")
         times[(B, n, m)] = dict(ms=float(np.mean(ms)), call_ms=call_ms,
                                 variant=variant)
         print(f"[sweep time] one sweep, complex64 [{B}, {n}, {m}], {variant} "
-              f"variant ({layout}): {' / '.join(f'{t:.4f}' for t in ms)} ms; "
+              f"variant ({_layout(B, n, m, variant, X)}): "
+              f"{' / '.join(f'{t:.4f}' for t in ms)} ms; "
               f"one call ({sw} sweeps, tol {tol:.0e}) {call_ms:.3f} ms; twin "
               f"{twin_ms:.3f} ms per sweep, bound {bound:.4f} ms ({by}; FP64 "
-              f"FLOPs {f64:.4f} ms), torch.linalg.svd {lib:.3f} ms", flush=True)
-        del X, Sk, Sh, St, Sc, Stc
+              f"FLOPs {f64:.4f} ms), torch.linalg.svd {lib}", flush=True)
+        if (B, n, m) in ODD_LAYER:           # the odd bond layer's call shape
+            Bo = ODD_LAYER[(B, n, m)]
+            Xo = X[:Bo].contiguous()
+            s1 = int(counter)
+            Sko = _rows_sv(Xo, tol, J._sweep_loop)
+            sw_o = int(counter) - s1
+            ms_o = _event_ms(lambda x: J._jacobi_sweep_cuda(x, variant),
+                             [(Xo.clone(),) for _ in range(3)])
+            (_, call_o) = _timed(lambda: _rows_sv(Xo, tol, J._sweep_loop))
+            call_o *= 1e3
+            bound_o = sweep_bound(Bo, n, m, with_v=False)[0]
+            _check(bool(torch.isfinite(Sko).all()), f"[{Bo}, {n}, {m}] S")
+            print(f"[sweep time] one sweep, complex64 [{Bo}, {n}, {m}], "
+                  f"{variant} variant ({_layout(Bo, n, m, variant, Xo)}): "
+                  f"{ms_o:.4f} ms; one call ({sw_o} sweeps, tol {tol:.0e}) "
+                  f"{call_o:.3f} ms; bound {bound_o:.4f} ms", flush=True)
+            del Xo, Sko
+        del X, Sk, Sh, Sc
     return times, worst
 
 
@@ -1750,7 +1896,8 @@ def phase_steady_chi512(psi, gates, tp):
     """bench.py's run_steady_chi512 on 'jacobi_core': the settled state
     padded to chi=512, STEADY['n_settle512'] settle periods, then
     STEADY['n_steady512'] timed periods, best of 3 (the core at
-    [20, 512, 512]).  Returns the kernel-1 counts of the settle."""
+    [20, 512, 512]).  Returns the kernel-1 counts of the settle and the
+    settled chi=512 state."""
     from timecrystal_tpu_torch.core.mps import pad_mps
 
     tpc = tp._replace(svd_method="jacobi_core")
@@ -1765,8 +1912,63 @@ def phase_steady_chi512(psi, gates, tp):
           f"'jacobi_core': settle {STEADY['n_settle512']} periods {dt:.1f} s "
           f"(max_chi {int(tr['max_chi'][-1])}), {rate:.3f} periods/s (best of "
           f"3, {STEADY['n_steady512']} periods); settle: {c['sweeps']} sweeps in "
-          f"{c['launches']} launches ({c['cluster']} cluster). The exact chi=512 "
-          f"leg ([20, 1024, 1024] on 'jacobi') waits for the port bench", flush=True)
+          f"{c['launches']} launches ({c['cluster']} cluster)", flush=True)
+    return c, psi2
+
+
+def phase_steady_exact_chi512(psi2, gates):
+    """bench.py's exact chi=512 leg (run_steady_chi512 with
+    TruncParams(chi_max=0, svd_min=1e-7) and svd_method 'auto', the Jacobi
+    kernel on the card): from [steady-chi512]'s settled chi=512 state, one
+    untimed merged period, then STEADY['n_exact512'] periods timed and
+    counted (kernel 1 on [20/19, 1024, 1024]: cluster launches, sweeps per
+    sweep loop against the cap, host syncs).  The traces must be finite,
+    LE in [0, 1] and max_chi <= 512; the same periods on 'jacobi_core' from
+    the same state lie within CLOSED_LOOP_FACTOR x its closed-loop class in
+    staggered magnetization and LE.  Returns the timed run's kernel-1
+    counts."""
+    from timecrystal_tpu_torch.core.truncate import TruncParams
+
+    n, L = STEADY["n_exact512"], CONFIG["L"]
+    tpe = TruncParams(chi_max=0, svd_min=CONFIG["svd_min"])
+    (psi3, _), dt_warm = _timed(lambda: _run_steady(psi2, gates, tpe, 1))
+    _reset_kernel1_counts()
+    loops, restore = _sweep_loops_counted()
+    try:
+        ((_, tr), syncs), dt = _timed(lambda: _with_sync_count(
+            lambda: _run_steady(psi3, gates, tpe, n)))
+    finally:
+        restore()
+    c = _kernel1_counts()
+    (_, trc), dt_core = _timed(lambda: _run_steady(
+        psi3, gates, tpe._replace(svd_method="jacobi_core"), n))
+    signs = np.where(np.arange(L) % 2 == 0, 1.0, -1.0)
+    le = tr["loschmidt_echo"]
+    d_st = float(np.abs(((tr["sz_sites"] - trc["sz_sites"]) * signs).mean(-1)).max())
+    d_le = float(np.abs(le - trc["loschmidt_echo"]).max())
+    b_st, b_le = (CLOSED_LOOP_FACTOR * x for x in CLOSED_LOOP_CLASS["jacobi_core"])
+    per_loop = c["sweeps"] / max(loops[0], 1)
+    print(f"[steady-exact-chi512] chi=512 exact leg (svd_method 'auto', "
+          f"chi_max=0, svd_min {CONFIG['svd_min']:.0e}): {n / dt:.4f} periods/s "
+          f"over a {n}-period run, the merged frame's entry and exit included "
+          f"(not a steady-state rate; {dt:.2f} s after one untimed period, "
+          f"{dt_warm:.2f} s); kernel 1: {loops[0]} sweep loops of [20/19, 1024, "
+          f"1024], {c['sweeps']} sweeps ({per_loop:.2f} a loop; the cap of 12 "
+          f"ended {'every' if per_loop >= 12 else 'not every'} loop) in "
+          f"{c['launches']} launches ({c['cluster']} cluster, {c['smem']} smem); "
+          f"host syncs {syncs}; max_chi {int(tr['max_chi'].max())}; against "
+          f"'jacobi_core' on the same periods ({n / dt_core:.3f} periods/s): "
+          f"|d stag| {d_st:.3e} (<= {b_st:.2e}), |d LE| {d_le:.3e} (<= "
+          f"{b_le:.2e})", flush=True)
+    for k, v in tr.items():
+        _check(bool(np.all(np.isfinite(v))), f"[steady-exact-chi512] non-finite {k}")
+    _check(float(le.min()) >= 0 and float(le.max()) <= 1 + 1e-5,
+           "[steady-exact-chi512] LE")
+    _check(int(tr["max_chi"].max()) <= 512, "[steady-exact-chi512] max_chi")
+    _check(c["cluster"] > 0 and c["sweeps"] > 0 and c["host_reads"] == 0,
+           f"[steady-exact-chi512] did not run kernel 1's cluster variant: {c}")
+    _check(d_st <= b_st and d_le <= b_le,
+           f"[steady-exact-chi512] leaves jacobi_core's class: {d_st}, {d_le}")
     return c
 
 
@@ -2008,7 +2210,8 @@ def phase_figures():
             out, dt = _timed(lambda: fn(params, device="cuda"))
             c, info = _kernel1_counts(), runs.infos[-1]
             t0 = time.perf_counter()
-            host = fn(params, device="cpu", dtype=torch.complex128)
+            with _host_threads():
+                host = fn(params, device="cpu", dtype=torch.complex128)
             dt_host, host_info = time.perf_counter() - t0, runs.infos[-1]
             series = out[1:] if key != "D" else out[1]
             host_series = host[1:] if key != "D" else host[1]
@@ -2415,8 +2618,9 @@ def phase_lindblad():
     _reset_kernel1_counts()                  # this path's counts start here
     (rhos, times, info), sec = _timed(lambda: run("cuda", torch.complex64))
     k = _kernel1_counts()
-    wit, _, _ = run("cpu", torch.complex64)
-    ref, _, _ = run("cpu", torch.complex128)
+    with _host_threads():
+        wit, _, _ = run("cpu", torch.complex64)
+        ref, _, _ = run("cpu", torch.complex128)
 
     # the dense Strang product: dephasing half-step (coherences between
     # ket and bra bits that differ at m sites times e^{-gamma dt m}), even
@@ -2543,7 +2747,8 @@ def phase_open_system():
     _reset_kernel1_counts()                  # this path's counts start here
     (tr, _, info), _ = _timed(run)
     k = _kernel1_counts()
-    host, _, _ = baseline("cpu", torch.complex128)()
+    with _host_threads():
+        host, _, _ = baseline("cpu", torch.complex128)()
     d = {key: float(np.max(np.abs(tr[key] - host[key])))
          for key in ("sz_sites", "sx_sites", "loschmidt_echo")}
     le = tr["loschmidt_echo"]
@@ -3227,6 +3432,302 @@ def phase_profiling():
     return k
 
 
+# the JAX package's examples as the port's entry points
+# (timecrystal_tpu_torch.examples) at their own sizes.  [quickstart]: the
+# single chain and QUICKSTART_REFERENCE_R ensemble members against
+# complex128 LAPACK on the host CPU, to GRID_REFERENCE_TOL['exact'] before
+# the reference first truncates (> GRID_EXACT_TRUNC a bond) and after it
+# within twice QUICKSTART_JAX_OVER_WITNESS times a complex64 LAPACK witness
+# on the host (run only when the reference truncates): no JAX run at these
+# sizes fits the CPU tests, so the ratio is the widest float32 Jacobi /
+# witness ratio the JAX package shows at the drive diagram's points
+# (DRIVE_JAX_OVER_WITNESS).  [hires]: config.txt's 25 x 20 grid as one
+# program and in the script's 5 checkpointed chunks of 100 points, its four
+# corners against complex128 on the host (sz and LE GRID_REFERENCE_TOL
+# before truncation, A2T to SCORE_TOL, the same verdict).
+# [multihost-demo]: the demo's two Gloo ranks sharing the card against one
+# process, A2T to SCORE_TOL and the same stringent-score verdict
+QUICKSTART_REFERENCE_R = 2
+# the script's time limit: the single chain held to complex128 over its
+# first QUICKSTART_REFERENCE_PERIODS periods, and the TDVP range section at
+# its widths (L=10, chi 32, the three alphas) for QUICKSTART_RANGE (of the
+# example's 16 periods and 2 realizations; 10 periods are the fewest at
+# which the A2T recipe has a bin at f_drive / 2)
+QUICKSTART_REFERENCE_PERIODS = 50
+QUICKSTART_RANGE = dict(n_periods=10, n_realizations=1)
+QUICKSTART_JAX_OVER_WITNESS = max(DRIVE_JAX_OVER_WITNESS)
+HIRES_CHUNK = 100
+
+
+def _exact_drift(card, ref, keys, trunc_err):
+    """(max |d| before the reference's first bond truncation above
+    GRID_EXACT_TRUNC, max |d| over all rows, rows before it) of the traces
+    ``keys`` of ``card`` against ``ref`` (rows on the second-to-last or
+    last axis: [..., n+1, L] or [..., n+1])."""
+    exact = np.cumsum(np.asarray(trunc_err) > GRID_EXACT_TRUNC, axis=-1) == 0
+    d_ex, d_all = 0.0, 0.0
+    for k in keys:
+        d = np.abs(np.asarray(card[k], float) - np.asarray(ref[k], float))
+        if d.ndim > exact.ndim:
+            d = d.max(-1)
+        d_all = max(d_all, float(d.max()))
+        if exact.any():
+            d_ex = max(d_ex, float(d[exact].max()))
+    return d_ex, d_all, int(exact.sum())
+
+
+def _host_hold(tag, card, run_host, keys=("sz_sites", "loschmidt_echo")):
+    """``card``'s traces against ``run_host(device, dtype)`` in complex128
+    on the host CPU: GRID_REFERENCE_TOL['exact'] before the reference
+    truncates; after it, when it does, within twice
+    QUICKSTART_JAX_OVER_WITNESS times the drift of a complex64 LAPACK
+    witness on the host."""
+    import torch
+
+    with _host_threads():
+        ref, dt = _timed(lambda: run_host("cpu", torch.complex128))
+    d_ex, d_all, rows = _exact_drift(card, ref, keys, ref["trunc_err"])
+    n = np.asarray(ref["trunc_err"]).size
+    tol = GRID_REFERENCE_TOL["exact"]
+    line = (f"[quickstart] {tag} against complex128 LAPACK on the host CPU "
+            f"({dt:.1f} s): before the reference truncates (> "
+            f"{GRID_EXACT_TRUNC:.0e} a bond; {rows} of {n} rows) max |d sz|, "
+            f"|d LE| {d_ex:.2e} (< {tol:.0e}); all rows {d_all:.2e}")
+    bound = tol
+    if rows < n:
+        with _host_threads():
+            wit = run_host("cpu", torch.complex64)
+        d_w = _exact_drift(wit, ref, keys, ref["trunc_err"])[1]
+        bound = max(tol, 2.0 * QUICKSTART_JAX_OVER_WITNESS * d_w)
+        line += (f" (complex64 LAPACK witness {d_w:.2e}; bound 2 x "
+                 f"{QUICKSTART_JAX_OVER_WITNESS} x witness = {bound:.2e})")
+    print(line + f"; max trunc_err {float(np.max(ref['trunc_err'])):.2e} (host)",
+          flush=True)
+    _check(d_ex < tol and d_all <= bound,
+           f"[quickstart] {tag} differs from complex128: {d_ex}, {d_all}")
+
+
+def phase_quickstart():
+    """examples/quickstart's five sections on the card at the JAX script's
+    widths, the TDVP section at QUICKSTART_RANGE (each its rate, A2T or
+    score and kernel counts); the single chain's first
+    QUICKSTART_REFERENCE_PERIODS periods and the ensemble's first
+    QUICKSTART_REFERENCE_R members against complex128 on the host CPU.
+    Returns (kernel-1 counts summed over the sections, the resident kernel
+    2's launches)."""
+    import torch
+
+    from timecrystal_tpu_torch.examples import quickstart as Q
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    total = dict(smem=0, cluster=0)
+    resident = 0
+
+    def section(name, fn, **kw):
+        nonlocal resident
+        _reset_kernel1_counts()              # this section's counts start here
+        v0 = J.V_RESIDENT_LAUNCHES
+        out, dt = _timed(lambda: fn(device="cuda", dtype=torch.complex64, **kw))
+        c = _kernel1_counts()
+        c["resident"] = J.V_RESIDENT_LAUNCHES - v0
+        for v in ("smem", "cluster"):
+            total[v] += c[v]
+        resident += c["resident"]
+        return out, dt, c
+
+    def k1(c):
+        return (f"kernel 1: {c['calls']} SVD calls, {c['sweeps']} sweeps in "
+                f"{c['launches']} launches ({c['smem']} smem, {c['cluster']} "
+                f"cluster)")
+
+    one, dt, c = section("single", Q.single_chain)
+    tr = one["traces"]
+    print(f"[quickstart] single chain (L=20, chi 64, theta 0.97 pi, 100 "
+          f"periods, CustomFloquet): {one['info']['periods_per_second']:.1f} "
+          f"periods/s ({dt:.2f} s); final max bond dim "
+          f"{one['info']['final_bond_dim']}; A2T {one['a2t']:.4f}, stringent "
+          f"score {one['dtc_score']:.4f}; {k1(c)}", flush=True)
+    for k, v in tr.items():
+        _check(bool(np.all(np.isfinite(v))), f"[quickstart] non-finite {k}")
+    _check(c["launches"] > 0 and c["host_reads"] == 0,
+           f"[quickstart] the single chain did not run kernel 1: {c}")
+    n_ref = min(QUICKSTART_REFERENCE_PERIODS, len(one["times"]) - 1)
+    _host_hold(f"single chain (its first {n_ref} periods)",
+               {k: v[:n_ref + 1] for k, v in tr.items()},
+               lambda d, t: Q.single_chain(n_periods=n_ref, device=d,
+                                           dtype=t)["traces"])
+
+    ens, dt, c = section("ensemble", Q.ensemble)
+    info, R = ens["info"], len(ens["a2t"])
+    print(f"[quickstart] ensemble (R={R}, L=20, chi 16 -> {info['chi_pad_used']}, "
+          f"60 merged periods, cap 'jacobi_core'): "
+          f"{info['chain_periods_per_second']:.1f} chain-periods/s ({dt:.2f} s "
+          f"with the A2T); A2T {np.round(ens['a2t'], 4).tolist()}; {k1(c)}",
+          flush=True)
+    _check(c["launches"] > 0 and bool(np.all(np.isfinite(ens["a2t"]))),
+           f"[quickstart] ensemble: {c}")
+    r = QUICKSTART_REFERENCE_R
+    _host_hold(f"ensemble members 0..{r - 1}",
+               {k: v[:r] for k, v in ens["traces"].items()},
+               lambda d, t: Q.ensemble(R=r, h_fields=ens["h_fields"][:r],
+                                       device=d, dtype=t)["traces"])
+
+    cor, dt, c = section("correlator", Q.correlator_map)
+    zz = cor["traces"]["zz_corr"]
+    print(f"[quickstart] correlator map (R=8, L=12, chi 32, 20 periods, "
+          f"zz_corr and the two-time map): {8 * 20 / dt:.1f} chain-periods/s "
+          f"({dt:.2f} s); S(k, f) peak at k {cor['peak_k']:.3f}, f "
+          f"{cor['peak_f']:.3f}; C(r, 20) {np.round(cor['c_rt'][20], 2).tolist()}; "
+          f"{k1(c)}", flush=True)
+    _check(bool(np.all(np.isfinite(zz))) and bool(np.all(np.isfinite(cor["S"]))),
+           "[quickstart] correlator map")
+    _check(c["launches"] > 0, f"[quickstart] correlator map: {c}")
+
+    rng, dt, c = section("range", Q.interaction_range, **QUICKSTART_RANGE)
+    n_runs = len(rng["alphas"]) * rng["a2t_all"].shape[1]
+    n_per = QUICKSTART_RANGE["n_periods"]
+    print(f"[quickstart] interaction range (alpha {rng['alphas']}, L=10, chi "
+          f"32, {n_per} periods, {rng['a2t_all'].shape[1]} realization(s), "
+          f"TDVP): {n_runs * n_per / dt:.3f} "
+          f"periods/s ({dt:.1f} s); A2T {np.round(rng['a2t'], 4).tolist()} +- "
+          f"{np.round(rng['a2t_std'], 4).tolist()}; kernel 2: {c['resident']} "
+          f"resident launches", flush=True)
+    _check(c["resident"] > 0 and bool(np.all(np.isfinite(rng["a2t_all"]))),
+           f"[quickstart] interaction range: {c}")
+
+    mem, dt, c = section("memory", Q.memory_lifetime)
+    n_traj = 2 * 2 * 8 * 40           # 2 gammas x 8 trajectories x 40, 2 legs
+    print(f"[quickstart] memory lifetime (gamma [0.01, 0.05], L=10, eps 0.04, "
+          f"8 trajectories, 40 periods, chi 24): {n_traj / dt:.1f} "
+          f"trajectory-periods/s ({dt:.2f} s); tau_bit "
+          f"{np.round(mem['tau_bit'], 1).tolist()}, T2 "
+          f"{np.round(mem['t2_qubit'], 1).tolist()} (1/(2 gamma) "
+          f"{np.round(mem['t2_analytic'], 1).tolist()}); {k1(c)}", flush=True)
+    _check(c["launches"] > 0 and bool(np.all(np.isfinite(mem["envelope"]))),
+           f"[quickstart] memory lifetime: {c}")
+    return total, resident
+
+
+def phase_hires():
+    """examples/phase_diagram_hires: config.txt's 25 x 20 grid through
+    hires_grid as one program (kernel 1 at [4000/3500, 64, 64]) and with the
+    script's defaults, 5 checkpointed chunks of HIRES_CHUNK points; both
+    give the same verdict at every point and A2T within SCORE_TOL; the four
+    corners against complex128 on the host CPU.  Returns the kernel-1
+    counts of both runs."""
+    import tempfile
+
+    import torch
+
+    from timecrystal_tpu_torch.analysis import phase_diagram as PD
+    from timecrystal_tpu_torch.examples import phase_diagram_hires as H
+    from timecrystal_tpu_torch.ops import jacobi_svd as J
+
+    params = _config_params()
+    hc = PD.GRID_HARDCODED
+    _reset_kernel1_counts()
+    one = H.hires_grid(params, checkpoint_dir="", device="cuda")
+    c1 = _kernel1_counts()
+    with tempfile.TemporaryDirectory() as ck:
+        _reset_kernel1_counts()
+        chunked = H.hires_grid(params, chunk_size=HIRES_CHUNK,
+                               checkpoint_dir=ck, device="cuda")
+        c2 = _kernel1_counts()
+        n_chunks = len([f for f in Path(ck).iterdir() if f.name.startswith("chunk")])
+    P = one["A2T"].size
+    n = 2 * 32                                     # sweep_phase_grid's chi_pad
+    per_sm = J.smem_occupancy(n, n, torch.complex64, "cuda")
+    even = P * len(range(0, hc["n_sites"] - 1, 2))
+    odd = P * (hc["n_sites"] - 1) - even
+    d_a2t = float(np.abs(one["A2T"] - chunked["A2T"]).max())
+    same = bool(np.array_equal(one["success"], chunked["success"]))
+    print(f"[hires] {len(one['h_values'])} x {len(one['T_values'])} = {P} "
+          f"points (L={hc['n_sites']}, {hc['n_periods']} periods, chi cap "
+          f"{hc['max_chi']}): one program {one['points_per_second']:.2f} "
+          f"points/s ({one['wall']:.2f} s; [{even}, {n}, {n}] and [{odd}, {n}, "
+          f"{n}] calls, {per_sm} CTAs an SM: {-(-even // (per_sm * SMS))} / "
+          f"{-(-odd // (per_sm * SMS))} waves of {per_sm * SMS}; {c1['calls']} "
+          f"SVD calls, {c1['sweeps']} sweeps in {c1['launches']} launches); "
+          f"{n_chunks} checkpointed chunks of {HIRES_CHUNK} "
+          f"{chunked['points_per_second']:.2f} points/s ({chunked['wall']:.2f} "
+          f"s, {c2['launches']} launches); success rate "
+          f"{100 * one['success'].mean():.1f}%; one program against chunks: "
+          f"max |d A2T| {d_a2t:.2e} (< {SCORE_TOL:.0e}), verdicts equal {same}",
+          flush=True)
+    _check(P == 500 and n_chunks == -(-P // HIRES_CHUNK), "[hires] grid size")
+    _check(c1["smem"] > 0 and c2["smem"] > 0 and c1["host_reads"] == 0,
+           f"[hires] did not run kernel 1's shared-memory variant: {c1}, {c2}")
+    _check(d_a2t < SCORE_TOL and same, "[hires] chunks differ from one program")
+    # the four corners in complex128 on the host CPU (LAPACK splits)
+    hv, Tv = one["h_values"], one["T_values"]
+    with _host_threads():
+        ref, dt_ref = _timed(lambda: PD.sweep_phase_grid(
+            hv[[0, -1]], Tv[[0, -1]], params, device="cpu",
+            dtype=torch.complex128))
+    rec = {(float(h), float(T)): i for i, (h, T) in
+           enumerate(zip(one["sweep"]["hs"], one["sweep"]["Ts"]))}
+    idx = [rec[(float(h), float(T))] for h, T in zip(ref["hs"], ref["Ts"])]
+    card = {k: v[idx] for k, v in one["sweep"]["traces"].items()}
+    d_ex, d_all, rows = _exact_drift(card, ref["traces"],
+                                     ("sz_sites", "loschmidt_echo"),
+                                     ref["traces"]["trunc_err"])
+    card_recs = [one["sweep"]["records"][i] for i in idx]
+    d_rec = max(abs(a["A2T"] - b["A2T"]) for a, b in zip(card_recs, ref["records"]))
+    verdicts = ([a["success"] for a in card_recs]
+                == [b["success"] for b in ref["records"]])
+    print(f"[hires] points {idx} (the corners) against complex128 LAPACK on "
+          f"the host CPU ({dt_ref:.1f} s): before the reference truncates "
+          f"({rows} rows) max |d sz|, |d LE| {d_ex:.2e} (< "
+          f"{GRID_REFERENCE_TOL['exact']:.0e}), all rows {d_all:.2e}; A2T card "
+          f"{[round(float(r['A2T']), 4) for r in card_recs]} / host "
+          f"{[round(float(r['A2T']), 4) for r in ref['records']]}, max |d| "
+          f"{d_rec:.2e} (< {SCORE_TOL:.0e}); verdicts equal {verdicts}",
+          flush=True)
+    _check(d_ex < GRID_REFERENCE_TOL["exact"] and d_rec < SCORE_TOL and verdicts,
+           f"[hires] corners differ from complex128: {d_ex}, {d_rec}, {verdicts}")
+    return {v: c1[v] + c2[v] for v in ("smem", "cluster")}
+
+
+def phase_multihost_demo():
+    """examples/multihost_demo: spawn_cluster with the script's defaults
+    (rank 0 in this process, rank 1 a child; two Gloo ranks sharing the
+    card), against the same ensemble in one process: A2T to SCORE_TOL and
+    the same stringent-score verdict for every realization.  Returns rank
+    0's and the one-process run's kernel-1 counts."""
+    from timecrystal_tpu_torch.analysis.detection import stringent_dtc_detection
+    from timecrystal_tpu_torch.examples import multihost_demo as MD
+
+    args = MD.parse_arguments([])
+    _reset_kernel1_counts()
+    out, dt = _timed(lambda: MD.spawn_cluster(args))
+    c = _kernel1_counts()
+    _reset_kernel1_counts()
+    ref, dt1 = _timed(lambda: MD.demo_ensemble(device="cuda"))
+    c1 = _kernel1_counts()
+    size = MD.DEMO
+    times = 2.0 * np.arange(size["n_periods"] + 1)
+
+    def verdicts(tr):
+        return [stringent_dtc_detection(le, times, 2.0) > 0
+                for le in tr["loschmidt_echo"]]
+
+    d = float(np.abs(out["a2t"] - ref["a2t"]).max())
+    same = verdicts(out["traces"]) == verdicts(ref["traces"])
+    R = len(ref["a2t"])
+    print(f"[multihost-demo] spawn_cluster, 2 Gloo ranks sharing the card: "
+          f"{R} realizations x {size['n_periods']} periods, L={size['L']}, chi "
+          f"{size['chi']} in {dt:.2f} s with the second rank's start-up "
+          f"({R * size['n_periods'] / dt:.1f} chain-periods/s); one process "
+          f"{dt1:.2f} s; A2T mean {out['a2t'].mean():.4f}, min "
+          f"{out['a2t'].min():.4f}; against one process max |d A2T| {d:.2e} (< "
+          f"{SCORE_TOL:.0e}), stringent verdicts equal {same} "
+          f"({sum(verdicts(ref['traces']))} DTC); rank 0's kernel 1: "
+          f"{c['launches']} launches ({c['smem']} smem)", flush=True)
+    _check(c["launches"] > 0 and c1["launches"] > 0, "[multihost-demo] kernel 1")
+    _check(d < SCORE_TOL and same, f"[multihost-demo] differs from one process: {d}")
+    return {v: c[v] + c1[v] for v in ("smem", "cluster")}
+
+
 def _child_main(args) -> int:
     """Entry of the processes phase_resume and phase_multihost start."""
     import torch
@@ -3284,8 +3785,10 @@ def main() -> int:
     psi, gates, tp, settle = _settled_state()
     steady = phase_steady(psi, gates, tp)
     closed = phase_closed_loop(psi, gates, tp)
-    chi512 = phase_steady_chi512(psi, gates, tp)
+    chi512, psi2 = phase_steady_chi512(psi, gates, tp)
     del psi
+    exact512 = phase_steady_exact_chi512(psi2, gates)
+    del psi2
     stamp("steady leg")
     phase_grid, grid_ref = phase_phase_grid()
     grids = (phase_grid, phase_drive_grid())
@@ -3312,12 +3815,26 @@ def main() -> int:
           f"{scale[1]['cluster']}, profiling {scale[2]['smem']} / "
           f"{scale[2]['cluster']}", flush=True)
     stamp("resume, scale-out and profiling")
-    for c in ((settle, chi512) + tuple(r["launches"] for r in steady.values())
+    for c in ((settle, chi512, exact512)
+              + tuple(r["launches"] for r in steady.values())
               + tuple(closed.values()) + grids + app + dyn + scale):
         for v in ("smem", "cluster"):
             launches[v] += c[v]
+    # the JAX package's three examples as entry points of the port
+    (quick, quick_resident), hires, demo = (phase_quickstart(), phase_hires(),
+                                            phase_multihost_demo())
+    print(f"[launches] kernel-1 launches of the examples (smem / cluster): "
+          f"quickstart {quick['smem']} / {quick['cluster']}, hires "
+          f"{hires['smem']} / {hires['cluster']}, multihost demo (rank 0 and "
+          f"the one-process run) {demo['smem']} / {demo['cluster']}; "
+          f"quickstart kernel-2 resident launches {quick_resident}", flush=True)
+    for c in (quick, hires, demo):
+        for v in ("smem", "cluster"):
+            launches[v] += c[v]
+    stamp("examples")
     phase_tdvp_oracle()
     k2["launches"], period_s = phase_range()
+    k2["launches"] += quick_resident
     phase_range_profile(period_s)
     stamp("range")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -40,6 +40,12 @@ SV_VARIANTS = {
     "c128_n122": ((2, 122, 122), torch.complex128, "cluster"),
     "c64_window_n144_batch320": ((320, 144, 144), torch.complex64, "smem"),
     "c64_leg_n512": ((20, 512, 512), torch.complex64, "cluster"),
+    # the chi-staged ladder's rung above 256 and the exact chi=512 leg (20
+    # even bonds of L=40), and the hires grid's one program (500 points x 8
+    # even bonds at chi_pad 32)
+    "c64_rung_n768": ((20, 768, 768), torch.complex64, "cluster"),
+    "c64_exact_n1024": ((20, 1024, 1024), torch.complex64, "cluster"),
+    "c64_hires_batch4000": ((4000, 64, 64), torch.complex64, "smem"),
 }
 
 
@@ -271,3 +277,18 @@ def test_refused_launch_raises_and_counts_nothing(monkeypatch):
     with pytest.raises(ValueError, match="does not take"):
         J._jacobi_sweep_cuda(torch.empty((1, 200, 200), dtype=torch.complex64,
                                          device="meta"), "smem")
+
+
+def test_twin_at_1024_rows_matches_lapack():
+    """The twin's sweep loop over 1024 rows (the exact chi=512 leg's row
+    count, [1, 1024, 16] complex128: 1023 tournament steps a sweep) gives
+    float64 LAPACK's singular values of the rows to 1e-10 x sigma_max."""
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(1024, 16)) + 1j * rng.normal(size=(1024, 16))
+    A *= np.logspace(0, -6, 16)
+    X = torch.as_tensor(A[None])
+    S = J._cols_to_sv(J._orthogonalize_columns(X, 24, 1e-14, J._plain_sweep_loop),
+                      0)[0][0].numpy()
+    ref = np.linalg.svd(A, compute_uv=False)
+    assert np.all(S[16:] == 0.0)
+    np.testing.assert_allclose(S[:16], ref, rtol=0, atol=1e-10 * ref[0])

@@ -16,6 +16,7 @@ from timecrystal_tpu_torch import convert
 from timecrystal_tpu_torch.analysis import figures, memory, phase_diagram
 from timecrystal_tpu_torch.core import gates, mps, observables, truncate
 from timecrystal_tpu_torch.dynamics import ground_state, open_system, tdvp, tebd
+from timecrystal_tpu_torch.examples import multihost_demo, phase_diagram_hires, quickstart
 from timecrystal_tpu_torch.models import kicked_ising, long_range
 from timecrystal_tpu_torch.ops import cuda_build
 from timecrystal_tpu_torch.parallel import multihost, site_shard, sweep
@@ -48,6 +49,10 @@ ENTRY_POINTS = [
     sweep.default_mesh, multihost.evolve_batch_multihost,
     multihost.disorder_ensemble_multihost, multihost.global_mesh,
     site_shard.evolve_floquet_sharded, checkpoint.load_state,
+    quickstart.single_chain, quickstart.ensemble, quickstart.correlator_map,
+    quickstart.interaction_range, quickstart.memory_lifetime,
+    phase_diagram_hires.hires_grid, multihost_demo.demo_ensemble,
+    multihost_demo.rank_main,
 ]
 
 REPO = Path(__file__).resolve().parents[1]
@@ -57,7 +62,7 @@ def test_port_imports_no_jax():
     """Importing every module of the port, in a fresh interpreter, pulls in
     neither jax nor the JAX package (it must run where JAX is absent); the
     walk reaches the checkpoint, profiling, multihost and site-shard
-    modules."""
+    modules and the three examples."""
     code = """
 import importlib, pkgutil, sys
 import timecrystal_tpu_torch as pkg
@@ -71,7 +76,10 @@ assert len(names) >= 12, names
 new = {"timecrystal_tpu_torch.utils.checkpoint",
        "timecrystal_tpu_torch.utils.profiling",
        "timecrystal_tpu_torch.parallel.multihost",
-       "timecrystal_tpu_torch.parallel.site_shard"}
+       "timecrystal_tpu_torch.parallel.site_shard",
+       "timecrystal_tpu_torch.examples.quickstart",
+       "timecrystal_tpu_torch.examples.phase_diagram_hires",
+       "timecrystal_tpu_torch.examples.multihost_demo"}
 assert new <= set(names), new - set(names)
 assert not bad, bad
 """
