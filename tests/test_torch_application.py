@@ -43,16 +43,6 @@ from timecrystal_tpu_torch.parallel import sweep as tsw
 from timecrystal_tpu_torch.utils.config import read_parameters as tread
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = str(REPO / "config.txt")
 C128, C64 = torch.complex128, torch.complex64

@@ -27,16 +27,6 @@ from timecrystal_tpu_torch.ops import jacobi_svd as J
 from timecrystal_tpu_torch.parallel import sweep as tsw
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 R, L, CHI, N = 3, 6, 8, 6
 THETAS = np.array([0.9, 0.95, 0.85]) * np.pi
 

@@ -42,16 +42,6 @@ CPU = dict(device="cpu", dtype=C128)
 TOL = 1e-8
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _assert_equal(out, ref):
     assert set(out) == set(ref)
     for k in ref:

@@ -37,16 +37,6 @@ C128 = torch.complex128
 TOL = 1e-8
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _models(L=8, chi=16, theta=0.9 * np.pi, bc="open", seed=5):
     kw = dict(J=1.0, h_disorder=0.3, tau=1.1, bc=bc, disorder_seed=seed,
               theta=theta, chi=chi)

@@ -54,16 +54,6 @@ DEMO_SIZE = dict(L=6, chi=8, n_periods=6, n_realizations=4)
 RANK_TIMEOUT = 120
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _fields(seed):
     return np.random.default_rng(seed).uniform(-0.3, 0.3, (R, L))
 
@@ -284,7 +274,7 @@ def test_multihost_demo_two_gloo_ranks_equal_one_process(tmp_path):
     pattern): rank 0's traces and A2T over the two ranks equal one
     process's bit for bit."""
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     procs = [subprocess.Popen([sys.executable, __file__, str(r), str(port),
                                str(tmp_path)], env=env, cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

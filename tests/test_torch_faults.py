@@ -21,16 +21,6 @@ from probe_torch_faults import (SPECTRA, haar_panels, jax_polish_iterations,
                                 torch_polish_iterations)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("spectrum,expected", [
     ("steady", (10, 11, 12)),
     ("dense", (6, 7, 8)),

@@ -27,16 +27,6 @@ from timecrystal_tpu_torch.dynamics import tebd
 from timecrystal_tpu_torch.models import kicked_ising as tki
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 GOLDEN = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden",
                                        "*.npz")))
 IDS = [os.path.basename(p)[:-4] for p in GOLDEN]

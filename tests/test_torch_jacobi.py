@@ -22,16 +22,6 @@ from timecrystal_tpu_torch.ops import jacobi_svd as J
 from timecrystal_tpu_torch.ops.csvd import csvd_topk
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 S_TOL = 1e-12
 V_TOL = 1e-10
 

@@ -40,15 +40,6 @@ SHAPES = {
 }
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _matrix(shape, seed=0):
     rng = np.random.default_rng(seed)
     return rng.normal(size=shape) + 1j * rng.normal(size=shape)

@@ -22,15 +22,6 @@ from timecrystal_tpu_torch.ops import cuda_build
 from timecrystal_tpu_torch.ops import jacobi_svd as J
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # theta shape [B, n, n], dtype, the variant that takes it: the limits of the
 # shared-memory fit rule n^2 itemsize + (n + 32) 8 <= 232448
 SV_VARIANTS = {

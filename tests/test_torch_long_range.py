@@ -27,15 +27,6 @@ C128 = torch.complex128
 L, CHI, ALPHA, TAU, N = 6, 8, 1.3, 0.4, 4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _oracle(h_fields, couplings, n_periods, theta=np.pi):
     U = long_range_floquet_unitary(L, couplings, h_fields, TAU, theta=theta)
     psi = product_statevector(neel_indices(L))

@@ -24,16 +24,6 @@ from timecrystal_tpu_torch.core import observables as tobs
 from timecrystal_tpu_torch.ops import fft as tfft
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 L, CHI, TOL = 6, 8, 1e-10
 
 

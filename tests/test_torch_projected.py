@@ -33,16 +33,6 @@ from timecrystal_tpu_torch.ops.fft import batched_subharmonic_amplitude
 from timecrystal_tpu_torch.parallel.sweep import ensemble_a2t
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 JDTYPE = {torch.complex128: jnp.float64, torch.complex64: jnp.float32}
 
 

@@ -107,7 +107,7 @@ def two_ranks(tmp_path_factory):
     rank fails the test instead of stalling it)."""
     out = tmp_path_factory.mktemp("ranks")
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     procs = [subprocess.Popen([sys.executable, __file__, str(r), str(port),
                                str(out)], env=env, cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -33,15 +33,6 @@ C128 = torch.complex128
 L, CHI, DT = 6, 8, 0.1
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def mpos():
     jm = jtdvp.spin_chain_mpo(L, Jz=1.0, hx=0.6, hz=0.2, dtype=jnp.float64)

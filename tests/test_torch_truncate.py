@@ -27,16 +27,6 @@ from timecrystal_tpu_torch.core import mps as tmps
 from timecrystal_tpu_torch.core import truncate as ttr
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The suite runs beside other worker processes on shared cores; torch's
-    default intra-op thread pool would oversubscribe them and spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 TOL = 1e-10
 L, CHI = 6, 8
 
