@@ -1,4 +1,4 @@
-"""Thread counts for every test run from this repository.
+"""Thread counts and markers for every test run from this repository.
 
 pytest loads this file before ``tests/conftest.py`` (and so before numpy,
 scipy, jax or torch is imported there), and before it starts xdist workers.
@@ -13,3 +13,9 @@ import os
 # may raise them from outside.
 os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
 os.environ.setdefault("OMP_NUM_THREADS", "1")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; the test decides inside itself "
+        "and skips without one")

@@ -8,10 +8,14 @@ against the twin there).  Here:
     measures, max_sweeps launches -- modelled in torch around the twin
     sweep, against the host loop: the same X bit for bit and the same
     number of sweeps;
-  * the arguments the wrapper hands the C entries (ctypes recorders).
+  * the arguments the wrapper hands the C entries (ctypes recorders), and
+    the device counters the shared-memory entry adds into;
+  * the premise of the shared-memory variant's skip: in the twin, a zero
+    row and a column zero in every row stay zero through a sweep.
 """
 
 import contextlib
+import ctypes
 import types
 
 import numpy as np
@@ -192,18 +196,24 @@ def test_jacobi_sv_device_loop_gives_the_twin_result():
     assert ran[1] == 24 and 0 < ran[0] < 24
 
 
-def _recording_library(monkeypatch, calls, rc=0, plan=(8, 30)):
+def _recording_library(monkeypatch, calls, rc=0, plan=(8, 30), add=None):
     """Replace the kernel library by ctypes-call recorders: the launch
-    entries record their arguments and return rc, the cluster plan writes
-    ``plan``."""
+    entries record their arguments and argtypes and return rc, the cluster
+    plan writes ``plan``; with ``add`` = (live, scheduled) the
+    shared-memory entries add it into the int64 [2] at their pair-step
+    counter's address, as the kernel does."""
     def entry(name):
         def fn(*args):
-            calls.append((name, args))
+            calls.append((name, args, fn.argtypes))
+            if add is not None and name.startswith("smem"):
+                counter = (ctypes.c_int64 * 2).from_address(args[7])
+                counter[0] += add[0]
+                counter[1] += add[1]
             return rc
         return fn
 
     def plan_fn(*args):
-        calls.append(("plan", args[:3]))
+        calls.append(("plan", args[:3], None))
         args[3]._obj.value, args[4]._obj.value = plan
         return 0
 
@@ -222,36 +232,140 @@ def _recording_library(monkeypatch, calls, rc=0, plan=(8, 30)):
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
 
+def _real_buffers(monkeypatch, allocated):
+    """Give the arguments the recorders cannot tell apart on meta tensors
+    (address 0) addresses of their own: both device counters become CPU
+    tensors, and every int16 allocation (the shared-memory variant's pair
+    list) a CPU tensor recorded in ``allocated``."""
+    counters = (torch.zeros((), dtype=torch.int64),
+                torch.zeros(2, dtype=torch.int64))
+    monkeypatch.setattr(J, "sweep_counter", lambda device: counters[0])
+    monkeypatch.setattr(J, "pair_step_counter", lambda device: counters[1])
+    empty = torch.empty
+
+    def spy(*shape, dtype=None, device=None, **kwargs):
+        if dtype == torch.int16:
+            allocated.append((tuple(*shape), device, empty(*shape, dtype=dtype)))
+            return allocated[-1][2]
+        return empty(*shape, dtype=dtype, device=device, **kwargs)
+    monkeypatch.setattr(torch, "empty", spy)
+    return counters
+
+
 @pytest.mark.parametrize("shape,dtype,entry,extra", [
     ((3, 8, 8), torch.complex64, "smem_c64", ()),
+    ((2, 120, 120), torch.complex128, "smem_c128", ()),
     ((2, 170, 170), torch.complex64, "cluster_c64", (8,)),
     ((2, 122, 122), torch.complex128, "cluster_c128", (8,)),
 ])
 def test_launch_wrapper_hands_the_c_entry_its_arguments(shape, dtype, entry, extra,
                                                         monkeypatch):
     """jacobi_sv enqueues max_sweeps launches of one entry with (X, sched,
-    prev, measure, done, sweeps, B, n, m, threshold[, cluster size],
-    stream): prev null for the first launch only, the host loop's float32
-    threshold, the cluster size from the plan; every launch is counted."""
-    calls = []
+    prev, measure, done, sweeps[, pairs, pair_steps], B, n, m,
+    threshold[, cluster size], stream): X and the schedule, prev null for
+    the first launch only and the last launch's measures after it, a
+    measure row of its own and the loop's one done flag, the device
+    counters, the shared-memory variant's fresh int16 [B, n-1, n/2] pair
+    list, the host loop's float32 threshold, the cluster size from the
+    plan, the current stream, each with its ctypes type; every launch is
+    counted."""
+    calls, allocated = [], []
     _recording_library(monkeypatch, calls)
+    sweeps, pair_steps = _real_buffers(monkeypatch, allocated)
+    smem = entry.startswith("smem")
     before = (J.KERNEL_LAUNCHES, J.SV_SMEM_LAUNCHES, J.SV_CLUSTER_LAUNCHES)
     J.jacobi_sv(torch.empty(shape, dtype=dtype, device="meta"), max_sweeps=3)
-    launches = [args for name, args in calls if name != "plan"]
-    assert [name for name, _ in calls if name != "plan"] == [entry] * 3
+    launches = [(args, types_) for name, args, types_ in calls if name != "plan"]
+    assert [name for name, _, _ in calls if name != "plan"] == [entry] * 3
     B, n, m = shape
     tol = 3e-8 if dtype == torch.complex64 else 1e-14
-    for i, args in enumerate(launches):
-        assert len(args) == 11 + len(extra)
-        assert (args[2] is None) is (i == 0)
-        assert args[6:9] == (B, n, m)
-        assert args[9] == J._exit_threshold(tol) == np.float32(tol * tol)
-        assert args[10:-1] == extra
-    assert [c for c in calls if c[0] == "plan"] == (
+    scratch = 2 if smem else 0
+    assert [(s, str(d)) for s, d, _ in allocated] == (
+        [((B, n - 1, n // 2), "meta")] * 3 if smem else [])
+    sched = J._schedule_on(n, torch.device("meta"))
+    for i, (args, types_) in enumerate(launches):
+        assert len(args) == 11 + scratch + len(extra)
+        assert types_ == ([ctypes.c_void_p] * (6 + scratch) + [ctypes.c_int] * 3
+                          + [ctypes.c_float] + [ctypes.c_int] * len(extra)
+                          + [ctypes.c_void_p])
+        assert args[0] == 0 and args[1] == sched.data_ptr()     # meta tensors
+        # the loop's measures [2, B] float64 on meta: row s at offset 8 B s
+        assert args[2] == (None if i == 0 else (i - 1) % 2 * 8 * B)
+        assert args[3] == i % 2 * 8 * B and args[4] == 0
+        assert args[5] == sweeps.data_ptr()
+        if smem:
+            assert args[6] == allocated[i][2].data_ptr()
+            assert args[7] == pair_steps.data_ptr()
+        assert args[6 + scratch:9 + scratch] == (B, n, m)
+        assert args[9 + scratch] == J._exit_threshold(tol) == np.float32(tol * tol)
+        assert args[10 + scratch:-1] == extra
+        assert args[-1] == 0                                   # the stream
+    assert [c[:2] for c in calls if c[0] == "plan"] == (
         [("plan", (B, n, m))] if extra else [])
-    smem = 3 if entry.startswith("smem") else 0
+    smem = 3 if smem else 0
     assert (J.KERNEL_LAUNCHES, J.SV_SMEM_LAUNCHES, J.SV_CLUSTER_LAUNCHES) == (
         before[0] + 3, before[1] + smem, before[2] + 3 - smem)
+
+
+def test_pair_step_counter_is_reset_and_read_like_the_sweep_counter(monkeypatch):
+    """pair_step_counter(device) is one int64 [2] tensor per device, apart
+    from sweep_counter's; the shared-memory entry adds (live, scheduled)
+    into it on every launch (a mocked entry here), the host reads the
+    totals, and zero_() resets it; the cluster entry adds nothing."""
+    monkeypatch.setattr(J, "_PAIR_STEPS", {})
+    counter = J.pair_step_counter("cpu")
+    assert counter is J.pair_step_counter(torch.device("cpu"))
+    assert counter is not J.sweep_counter("cpu")
+    assert counter.dtype == torch.int64 and counter.shape == (2,)
+    assert counter.tolist() == [0, 0]
+    # the entries add where the wrapper points them: this CPU counter
+    J._PAIR_STEPS["meta"] = counter
+    calls = []
+    _recording_library(monkeypatch, calls, add=(5, 84))
+    J.jacobi_sv(torch.empty((3, 8, 8), dtype=torch.complex64, device="meta"),
+                max_sweeps=4)
+    assert counter.tolist() == [4 * 5, 4 * 84]
+    counter.zero_()
+    assert J.pair_step_counter("meta").tolist() == [0, 0]
+    J.jacobi_sv(torch.empty((3, 8, 8), dtype=torch.complex64, device="meta"),
+                max_sweeps=2)
+    J.jacobi_sv(torch.empty((2, 170, 170), dtype=torch.complex64, device="meta"),
+                max_sweeps=2)
+    assert counter.tolist() == [2 * 5, 2 * 84]
+
+
+# rows and columns zero in every row of X [n, m], as the padded MPS leaves
+# them: the drive diagram's theta (48 of 96 rows live, columns q * 48 + c
+# with c < 24) and one live row
+ZERO_PATTERNS = {
+    "drive_like": (16, 16, list(range(8)), [c for c in range(16) if c % 8 < 4]),
+    "one_live_row": (8, 12, [3], list(range(12))),
+    "scattered": (12, 10, [0, 2, 3, 7, 11], [1, 4, 5, 9]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ZERO_PATTERNS))
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_zero_rows_and_columns_stay_zero_through_a_sweep(case, dtype):
+    """What makes the shared-memory variant's skip exact, in the twin (the
+    kernel's arithmetic): a pair with a zero row rotates by the identity
+    and a rotation mixes only like columns, so after a sweep the zero rows
+    and the columns zero in every row are still exactly zero; one live row
+    is left as it was, with measure 0."""
+    n, m, rows, cols = ZERO_PATTERNS[case]
+    rng = np.random.default_rng(9)
+    X = torch.zeros((1, n, m), dtype=dtype)
+    live = torch.as_tensor(rng.normal(size=(len(rows), len(cols)))
+                           + 1j * rng.normal(size=(len(rows), len(cols)))).to(dtype)
+    X[0, np.ix_(rows, cols)[0], np.ix_(rows, cols)[1]] = live
+    Xs, measure = J._jacobi_sweep_torch(X)
+    dead_rows = [r for r in range(n) if r not in rows]
+    dead_cols = [c for c in range(m) if c not in cols]
+    assert torch.all(Xs[0, dead_rows] == 0) and torch.all(Xs[0][:, dead_cols] == 0)
+    if len(rows) == 1:
+        assert torch.equal(Xs, X) and float(measure) == 0.0
+    else:
+        assert not torch.equal(Xs, X)     # the live rows did rotate
 
 
 def test_refused_launch_raises_and_counts_nothing(monkeypatch):

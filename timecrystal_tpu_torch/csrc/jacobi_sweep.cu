@@ -93,10 +93,49 @@
 // The rotation parameters are computed redundantly by every lane of a
 // group: a warp issues the dependent double chain (~6 divisions and square
 // roots) once for its 4 pairs, and computing them in one lane of the group
-// and broadcasting them by shuffle was no faster.  Its floor is FP64 work:
-// 28 len FLOPs per pair and step plus 12 float <-> double conversions per
-// element for complex64 (4 for the overlap, 8 for the rotation), at a
-// quarter of the FP64 FMA rate.
+// and broadcasting them by shuffle was no faster.  On a dense matrix its
+// floor is FP64 work: 28 len FLOPs per pair and step plus 12 float <-> double
+// conversions per element for complex64 (4 for the overlap, 8 for the
+// rotation), at a quarter of the FP64 FMA rate.
+//
+// The padded MPS is mostly exact zeros: the drive diagram pads chi to 48
+// and caps it at 24, and apply_bond_gates zeros every discarded Schmidt
+// value and its rows of Vh, so a [96, 96] theta has at most 48 live rows
+// and 6 of its 12 8-column chunks live.  The variant skips that work, and
+// skipping it is exact.  The sweep-start pass that sums the norms also marks
+// which rows and which chunks hold a nonzero element (bit masks in the
+// reduction scratch).  A pair with a zero row has c = 0 exactly, so its
+// rotation is t = 0, cs = 1, w = 0: the identity, norms unchanged, measure
+// 0; and a rotation mixes only element j of its two rows, so a zero row and
+// a chunk zero in every row stay zero for the whole sweep.  So, per sweep:
+//   * the CTA lists the pairs of every step whose two rows are live,
+//     compacted onto groups 0 .. P_t - 1 by ballots, in the scratch `pairs`
+//     the wrapper allocates (uint16 l | r << 8, [B, n-1, n/2], 8.8 MB at
+//     [960, 96, 96], in L2), and each group reads its entry a step ahead:
+//     groups past P_t wait at the step's barrier, warps past P_t / 4 run
+//     nothing;
+//   * in rows of up to 32 chunks (len <= 256: every square matrix the
+//     variant takes) the live chunks are moved, in order, to the front of
+//     each row and the dense loops run over those columns alone.  Chunk j
+//     is lane l's element 8 j + l either way, so each lane still sums and
+//     rotates its own elements in the dense sweep's order, less terms that
+//     are +-0; the live columns go back to their places at the end, the
+//     zeros are not rewritten.  (Looping over a chunk mask instead kept the
+//     compiler from unrolling the loops: 24-35% slower on dense input on an
+//     H100.)
+// So X, the norms, the measure and the sweep count are the dense sweep's
+// bit for bit, but for the sign of a zero that is no longer rewritten (for
+// finite input).  A dense matrix (every row and chunk live) reads the
+// schedule and runs the dense sweep's step loop (sweep_steps<T, true>) and
+// builds no list: the list and a pair flag read from it each step made
+// dense input 1.3-5.2% slower at [320, 64/96, 64/96] and [960, 64, 64] on
+// an H100.
+// Dense input pays the marking alone.  What bounds the sparse sweep is
+// each step's latency: the dependent FP64 chain of the rotation parameters
+// and the barrier, for n-1 steps, of which a tournament over the live rows
+// alone would need fewer (another rotation order).  Block 0 adds the
+// scheduled pair-steps B (n-1) n/2, and each CTA its live pair-steps, to
+// the device counter pair_steps [2].
 //
 // Kernel 1, cluster variant.  A complex64 n = 512 matrix is 2 MiB, more than
 // an SM holds, and one CTA per matrix kept 20 of 132 SMs busy on the n = 512
@@ -309,12 +348,96 @@ size_t smem_bytes(int n, int len) {
          static_cast<size_t>(n + 32) * sizeof(Acc);
 }
 
+// While the shared-memory variant sweeps, its reduction scratch holds which
+// rows are live (a bit mask), which 8-column chunks are (one word: chunks
+// are skipped in rows of up to 32 of them, len <= kChunkColumns) and the
+// count of live pairs; a group's list entry is l | r << 8, or kNoPair.
+constexpr int kRowWords = 8;                      // rows < 256
+constexpr int kChunkColumns = 32 * kSmemGroup;    // the columns the chunk mask covers
+constexpr int kNoPair = 0xffff;
+static_assert(kSmemMaxThreads / kSmemGroup * 2 < 255, "rows fit a byte of the entry");
+
+// the pair (l, r) group g takes at step t, and whether it has one: the
+// schedule's slot g (kDense) or entry g of the CTA's list of live pairs
+template <bool kDense>
+__device__ __forceinline__ bool step_pair(const int* __restrict__ sched,
+                                          const unsigned short* list, int t, int n,
+                                          int g, int& l, int& r) {
+  const int k = n / 2;
+  if (kDense) {
+    l = __ldg(sched + static_cast<size_t>(t) * n + g);
+    r = __ldg(sched + static_cast<size_t>(t) * n + k + g);
+    return true;
+  }
+  const int e = list[static_cast<size_t>(t) * k + g];
+  l = e & 0xff;
+  r = e >> 8;
+  return e != kNoPair;
+}
+
+// The n-1 steps of the shared-memory variant over the first `cols` columns
+// of the rows in Xs (row stride len), group g taking the pair step_pair
+// names; returns this thread's max of |c|^2 / maxn2^2.  On a dense matrix
+// (kDense: every row live, cols = len) a group has a pair at every step and
+// the loop is the dense sweep's.
+template <typename T, bool kDense>
+__device__ __forceinline__ Acc sweep_steps(typename Complex2<T>::type* Xs, Acc* norms,
+                                           const int* __restrict__ sched,
+                                           const unsigned short* list, int n, int len,
+                                           int cols, int g, int lane, unsigned mask,
+                                           bool active, Acc inv_maxn2_sq) {
+  using C2 = typename Complex2<T>::type;
+  Acc run_max = 0.0;
+  int l = 0, r = 0;
+  bool on = active && step_pair<kDense>(sched, list, 0, n, g, l, r);
+  __syncthreads();  // every thread has read the norms before step 0 rewrites them
+
+  for (int t = 0; t < n - 1; ++t) {
+    int next_l = 0, next_r = 0;  // the next step's pair, read during this one
+    const bool next_on =
+        active && t + 2 < n && step_pair<kDense>(sched, list, t + 1, n, g, next_l, next_r);
+    if (on) {
+      C2* u_row = Xs + static_cast<size_t>(l) * len;
+      C2* v_row = Xs + static_cast<size_t>(r) * len;
+      const Acc a = norms[l];
+      const Acc b = norms[r];
+      Acc c_re, c_im;
+      row_overlap<T, kSmemGroup>(u_row, v_row, cols, lane, c_re, c_im);
+      c_re = group_sum<kSmemGroup>(c_re, mask);
+      c_im = group_sum<kSmemGroup>(c_im, mask);
+      const Acc abs2c = c_re * c_re + c_im * c_im;
+      run_max = fmax(run_max, abs2c * inv_maxn2_sq);
+
+      const Rotation q = pair_rotation(a, b, c_re, c_im, abs2c);
+      rotate_rows<T, kSmemGroup>(u_row, v_row, cols, lane, q);
+      __syncwarp(mask);  // every lane has read a, b before lane 0 overwrites them
+      if (lane == 0) {
+        norms[l] = a - q.t * q.absc;
+        norms[r] = b + q.t * q.absc;
+      }
+    }
+    __syncthreads();  // the next step pairs rows written by other groups
+    l = next_l;
+    r = next_r;
+    on = next_on;
+  }
+  return run_max;
+}
+
+// where column col of a row sits once the live chunks (bit c of live: chunk
+// c, columns 8 c .. 8 c + 7) are moved, in order, to the front of the row
+__device__ __forceinline__ int live_column(unsigned live, int col) {
+  const int c = col / kSmemGroup;
+  return kSmemGroup * __popc(live & ((1u << c) - 1u)) + col % kSmemGroup;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kSmemMaxThreads, 1)
 jacobi_sv_smem_kernel(typename Complex2<T>::type* __restrict__ X,
                       const int* __restrict__ sched, const Acc* __restrict__ prev,
                       Acc* __restrict__ measure, int* done,
-                      unsigned long long* sweeps, int batch, int n, int len,
+                      unsigned long long* sweeps, unsigned short* pairs,
+                      unsigned long long* pair_steps, int batch, int n, int len,
                       float threshold) {
   using C2 = typename Complex2<T>::type;
   extern __shared__ __align__(16) unsigned char shared[];
@@ -331,60 +454,110 @@ jacobi_sv_smem_kernel(typename Complex2<T>::type* __restrict__ X,
   const bool active = g < k;       // the last warp may hold idle groups
   const unsigned mask = ((1u << kSmemGroup) - 1u) << ((tid & 31) & ~(kSmemGroup - 1));
   C2* A = X + static_cast<size_t>(blockIdx.x) * n * len;
+  unsigned* live_rows = reinterpret_cast<unsigned*>(red);   // [kRowWords]
+  unsigned* live_pairs = live_rows + kRowWords;             // [1]
+  unsigned* live_chunks = live_rows + kRowWords + 1;        // [1]
+  unsigned short* list = pairs + static_cast<size_t>(blockIdx.x) * (n - 1) * k;
 
   // X in, as 16-byte words (n is even, so the matrix is whole words)
   const int words = n * len * static_cast<int>(sizeof(C2)) / 16;
   for (int i = tid; i < words; i += blockDim.x)
     reinterpret_cast<uint4*>(Xs)[i] = reinterpret_cast<const uint4*>(A)[i];
+  if (tid < kRowWords + 2) live_rows[tid] = 0u;
   __syncthreads();
 
-  // fresh column norms at sweep start: group g sums rows g and g + k
+  // fresh column norms at sweep start (group g sums rows g and g + k), and
+  // which rows and chunks hold a nonzero element (bit j of a lane's word:
+  // its element 8 j + lane; past 32 chunks the bits wrap, and only whether
+  // the row is live is read)
   if (active) {
     for (int r = g; r < n; r += k) {
-      const Acc v = group_sum<kSmemGroup>(
-          row_norm2<T, kSmemGroup>(Xs + static_cast<size_t>(r) * len, len, lane), mask);
-      if (lane == 0) norms[r] = v;
+      const C2* row = Xs + static_cast<size_t>(r) * len;
+      Acc s = 0.0;
+      unsigned word = 0u;
+      for (int i = lane, j = 0; i < len; i += kSmemGroup, ++j) {
+        const C2 v = row[i];
+        s += static_cast<Acc>(v.x) * v.x + static_cast<Acc>(v.y) * v.y;
+        if (v.x != 0 || v.y != 0) word |= 1u << (j & 31);
+      }
+      s = group_sum<kSmemGroup>(s, mask);
+      word = __reduce_or_sync(mask, word);
+      if (lane == 0) {
+        norms[r] = s;
+        if (word != 0u) {
+          atomicOr(live_rows + (r >> 5), 1u << (r & 31));
+          atomicOr(live_chunks, word);
+        }
+      }
     }
   }
   __syncthreads();
+
+  // the live chunks move, in order, to the front of every row, so that each
+  // lane keeps its elements in their order and the sweep's loops run over
+  // the first len_live columns; from the copy in device memory, as the
+  // rows are still whole there
+  int rows = 0;
+  for (int w = 0; w < kRowWords; ++w) rows += __popc(live_rows[w]);
+  const int chunks = (len + kSmemGroup - 1) / kSmemGroup;
+  const unsigned live = *live_chunks;
+  const bool compact =
+      len <= kChunkColumns && live != (chunks == 32 ? ~0u : (1u << chunks) - 1u);
+  const bool dense = rows == n && !compact;
+  int len_live = len;
+  if (compact) {
+    const int tail = len % kSmemGroup;  // the last chunk's width, if partial
+    len_live = kSmemGroup * __popc(live) -
+               (tail != 0 && ((live >> (chunks - 1)) & 1u) ? kSmemGroup - tail : 0);
+    for (int i = tid; i < n * len; i += blockDim.x) {
+      const int col = i % len;
+      if ((live >> (col / kSmemGroup)) & 1u) Xs[i - col + live_column(live, col)] = A[i];
+    }
+  }
+
+  // unless the matrix is dense, the live pairs of every step, compacted:
+  // entry p < P_t of step t is the p-th pair of the step whose two rows are
+  // live, entries P_t .. k-1 are kNoPair; warp w builds steps w, w + warps
+  if (!dense) {
+    const int wl = tid & 31;
+    unsigned found = 0u;
+    for (int t = tid >> 5; t < n - 1; t += blockDim.x >> 5) {
+      const int* slot = sched + static_cast<size_t>(t) * n;
+      unsigned short* entry = list + static_cast<size_t>(t) * k;
+      int base = 0;
+      for (int p0 = 0; p0 < k; p0 += 32) {
+        const int p = p0 + wl;
+        const int l = p < k ? __ldg(slot + p) : 0;
+        const int r = p < k ? __ldg(slot + k + p) : 0;
+        const bool both = p < k && ((live_rows[l >> 5] >> (l & 31)) & 1u) &&
+                          ((live_rows[r >> 5] >> (r & 31)) & 1u);
+        const unsigned b = __ballot_sync(0xffffffffu, both);
+        if (both)
+          entry[base + __popc(b & ((1u << wl) - 1u))] = static_cast<unsigned short>(l | r << 8);
+        base += __popc(b);
+      }
+      for (int p = base + wl; p < k; p += 32) entry[p] = kNoPair;
+      found += base;
+    }
+    if (wl == 0 && found != 0u) atomicAdd(live_pairs, found);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    atomicAdd(pair_steps, dense ? static_cast<unsigned long long>(n - 1) * k
+                                : static_cast<unsigned long long>(*live_pairs));
+    if (blockIdx.x == 0)
+      atomicAdd(pair_steps + 1, static_cast<unsigned long long>(batch) * (n - 1) * k);
+  }
   Acc maxn2 = 0.0;
   for (int r = 0; r < n; ++r) maxn2 = fmax(maxn2, norms[r]);
   const Acc inv_maxn2_sq = 1.0 / fmax(maxn2 * maxn2, 1e-30);
-  Acc run_max = 0.0;
-  int l = active ? __ldg(sched + g) : 0;
-  int r = active ? __ldg(sched + k + g) : 0;
-  __syncthreads();  // every thread has read the norms before step 0 rewrites them
-
-  for (int t = 0; t < n - 1; ++t) {
-    int next_l = 0, next_r = 0;
-    if (active && t + 2 < n) {   // the next step's slots, read during this one
-      next_l = __ldg(sched + static_cast<size_t>(t + 1) * n + g);
-      next_r = __ldg(sched + static_cast<size_t>(t + 1) * n + k + g);
-    }
-    if (active) {
-      C2* u_row = Xs + static_cast<size_t>(l) * len;
-      C2* v_row = Xs + static_cast<size_t>(r) * len;
-      const Acc a = norms[l];
-      const Acc b = norms[r];
-      Acc c_re, c_im;
-      row_overlap<T, kSmemGroup>(u_row, v_row, len, lane, c_re, c_im);
-      c_re = group_sum<kSmemGroup>(c_re, mask);
-      c_im = group_sum<kSmemGroup>(c_im, mask);
-      const Acc abs2c = c_re * c_re + c_im * c_im;
-      run_max = fmax(run_max, abs2c * inv_maxn2_sq);
-
-      const Rotation q = pair_rotation(a, b, c_re, c_im, abs2c);
-      rotate_rows<T, kSmemGroup>(u_row, v_row, len, lane, q);
-      __syncwarp(mask);  // every lane has read a, b before lane 0 overwrites them
-      if (lane == 0) {
-        norms[l] = a - q.t * q.absc;
-        norms[r] = b + q.t * q.absc;
-      }
-    }
-    __syncthreads();  // the next step pairs rows written by other groups
-    l = next_l;
-    r = next_r;
-  }
+  // (the dense loop bound is the argument len: a copy in a register made
+  // dense input up to 1.3% slower on an H100)
+  Acc run_max =
+      dense ? sweep_steps<T, true>(Xs, norms, sched, list, n, len, len, g, lane, mask,
+                                   active, inv_maxn2_sq)
+            : sweep_steps<T, false>(Xs, norms, sched, list, n, len, len_live, g, lane, mask,
+                                    active, inv_maxn2_sq);
 
   // the sweep's measure: max over the warps
   run_max = warp_max(run_max);
@@ -395,8 +568,15 @@ jacobi_sv_smem_kernel(typename Complex2<T>::type* __restrict__ X,
     for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) m = fmax(m, red[w]);
     measure[blockIdx.x] = m;
   }
-  for (int i = tid; i < words; i += blockDim.x)
-    reinterpret_cast<uint4*>(A)[i] = reinterpret_cast<const uint4*>(Xs)[i];
+  if (compact) {  // the live chunks back to their columns; the zeros stay
+    for (int i = tid; i < n * len; i += blockDim.x) {
+      const int col = i % len;
+      if ((live >> (col / kSmemGroup)) & 1u) A[i] = Xs[i - col + live_column(live, col)];
+    }
+  } else {
+    for (int i = tid; i < words; i += blockDim.x)
+      reinterpret_cast<uint4*>(A)[i] = reinterpret_cast<const uint4*>(Xs)[i];
+  }
 }
 
 inline int smem_threads(int n) { return (n / 2 * kSmemGroup + 31) / 32 * 32; }
@@ -410,8 +590,8 @@ bool smem_takes(int batch, int n, int len) {
 
 template <typename T>
 int launch_smem(void* X, const void* sched, const void* prev, void* measure,
-                void* done, void* sweeps, int batch, int n, int len,
-                float threshold, void* stream) {
+                void* done, void* sweeps, void* pairs, void* pair_steps, int batch,
+                int n, int len, float threshold, void* stream) {
   using C2 = typename Complex2<T>::type;
   if (!smem_takes<T>(batch, n, len)) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = smem_threads(n);
@@ -427,8 +607,9 @@ int launch_smem(void* X, const void* sched, const void* prev, void* measure,
   jacobi_sv_smem_kernel<T><<<batch, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<C2*>(X), static_cast<const int*>(sched),
       static_cast<const Acc*>(prev), static_cast<Acc*>(measure),
-      static_cast<int*>(done), static_cast<unsigned long long*>(sweeps), batch, n, len,
-      threshold);
+      static_cast<int*>(done), static_cast<unsigned long long*>(sweeps),
+      static_cast<unsigned short*>(pairs), static_cast<unsigned long long*>(pair_steps),
+      batch, n, len, threshold);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -852,22 +1033,25 @@ int launch_resident(void* X, void* W, const void* sched, void* sweeps, int n,
 // previous launch, or null for its first (then no exit test); measure
 // float64 [batch] is written with this sweep's measures; done int32 is the
 // loop's exit flag (0 before its first launch); sweeps int64 counts the
-// sweeps run.  Enqueues one launch on `stream` without synchronizing; returns
-// the launch's error, cudaErrorInvalidValue for a shape it does not take.
+// sweeps run; pairs uint16 [batch, n-1, n/2] is the sweep's scratch (the
+// live pairs of each step); pair_steps int64 [2] counts the pair-steps run
+// on two live rows and the pair-steps scheduled.  Enqueues one launch on
+// `stream` without synchronizing; returns the launch's error,
+// cudaErrorInvalidValue for a shape it does not take.
 extern "C" int tct_jacobi_sweep_c64(void* X, const void* sched, const void* prev,
                                     void* measure, void* done, void* sweeps,
-                                    int batch, int n, int len, float threshold,
-                                    void* stream) {
-  return launch_smem<float>(X, sched, prev, measure, done, sweeps, batch, n, len,
-                            threshold, stream);
+                                    void* pairs, void* pair_steps, int batch, int n,
+                                    int len, float threshold, void* stream) {
+  return launch_smem<float>(X, sched, prev, measure, done, sweeps, pairs, pair_steps,
+                            batch, n, len, threshold, stream);
 }
 
 extern "C" int tct_jacobi_sweep_c128(void* X, const void* sched, const void* prev,
                                      void* measure, void* done, void* sweeps,
-                                     int batch, int n, int len, float threshold,
-                                     void* stream) {
-  return launch_smem<double>(X, sched, prev, measure, done, sweeps, batch, n, len,
-                             threshold, stream);
+                                     void* pairs, void* pair_steps, int batch, int n,
+                                     int len, float threshold, void* stream) {
+  return launch_smem<double>(X, sched, prev, measure, done, sweeps, pairs, pair_steps,
+                             batch, n, len, threshold, stream);
 }
 
 // CTAs of the shared-memory variant one SM holds at once for a [n, len]

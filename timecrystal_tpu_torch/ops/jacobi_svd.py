@@ -22,7 +22,10 @@ TEBD window) runs the shared-memory variant, any other the cluster variant
 on the device: the host enqueues ``max_sweeps`` launches and reads nothing;
 each launch first reads the previous one's batch-max measure and returns
 at once after the exit (``_device_sweep_loop``).  The sweeps run are added
-into ``sweep_counter(device)``.
+into ``sweep_counter(device)``.  The shared-memory variant skips the pairs
+with a zero row and the 8-column chunks zero in every row, which leaves the
+result as it was; it adds the pair-steps it ran on two live rows and the
+pair-steps scheduled into ``pair_step_counter(device)``.
 
 ``jacobi_proj`` / ``jacobi_core`` (the saturated-chi steady leg's top-k
 SVDs) project theta onto k-column panels with matmuls and orthogonalize the
@@ -92,6 +95,7 @@ SMEM_MAX_ROWS = 168
 
 _SCHEDULES: dict = {}
 _SWEEPS: dict = {}
+_PAIR_STEPS: dict = {}
 _RESIDENT_SWEEPS: dict = {}
 _CLUSTER_PLANS: dict = {}
 _PROJ_BASES: dict = {}
@@ -232,10 +236,10 @@ def _sv_variant(B: int, n: int, m: int, itemsize: int) -> str:
     return "smem" if _sv_smem_fits(n, m, itemsize) else "cluster"
 
 
-def _device_counter(store: dict, device) -> torch.Tensor:
+def _device_counter(store: dict, device, shape=()) -> torch.Tensor:
     key = str(torch.device(device))
     if key not in store:
-        store[key] = torch.zeros((), dtype=torch.int64, device=device)
+        store[key] = torch.zeros(shape, dtype=torch.int64, device=device)
     return store[key]
 
 
@@ -245,6 +249,15 @@ def sweep_counter(device) -> torch.Tensor:
     so that counting reads nothing on the host.  Reset it with
     ``zero_()``."""
     return _device_counter(_SWEEPS, device)
+
+
+def pair_step_counter(device) -> torch.Tensor:
+    """The int64 [2] counter on ``device`` (a CUDA device with its index)
+    into which every sweep of the shared-memory variant adds, on the
+    device, the pair-steps it ran on two live rows and the pair-steps its
+    tournament scheduled (B (n-1) n/2): 1 - live / scheduled is the share
+    of the pair work it skipped.  Reset it with ``zero_()``."""
+    return _device_counter(_PAIR_STEPS, device, (2,))
 
 
 def cluster_plan(B: int, n: int, m: int, dtype, device) -> tuple:
@@ -314,23 +327,28 @@ def _launch_sweep_cuda(X: torch.Tensor, prev, measure: torch.Tensor,
             raise ValueError(f"the shared-memory sweep does not take {X.dtype} "
                              f"{list(X.shape)}")
         fn = lib.tct_jacobi_sweep_c64 if c64 else lib.tct_jacobi_sweep_c128
+        # the live pairs of every step, which the sweep lists for itself
+        pairs = torch.empty((B, n - 1, n // 2), dtype=torch.int16, device=X.device)
+        scratch = [pairs.data_ptr(), pair_step_counter(X.device).data_ptr()]
         extra = []
     elif variant == "cluster":
         fn = (lib.tct_jacobi_sweep_cluster_c64 if c64
               else lib.tct_jacobi_sweep_cluster_c128)
+        scratch = []
         extra = [cluster_plan(B, n, m, X.dtype, X.device)[0]]
     else:
         raise ValueError(f"unknown kernel-1 variant {variant!r}")
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                   + [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * (6 + len(scratch)) + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * len(extra)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     sched = _schedule_on(n, X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = fn(X.data_ptr(), sched.data_ptr(),
                  None if prev is None else prev.data_ptr(), measure.data_ptr(),
-                 done.data_ptr(), sweep_counter(X.device).data_ptr(), B, n, m,
-                 threshold, *extra, stream)
+                 done.data_ptr(), sweep_counter(X.device).data_ptr(), *scratch,
+                 B, n, m, threshold, *extra, stream)
     if err != 0:
         raise RuntimeError(f"jacobi_sweep ({variant}) kernel launch failed: "
                            f"CUDA error {err}")
