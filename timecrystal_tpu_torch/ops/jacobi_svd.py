@@ -32,7 +32,10 @@ SVDs) project theta onto k-column panels with matmuls and orthogonalize the
 panels -- or the k x k core -- with the same ``_sweep_loop``: on a CUDA
 tensor kernel 1 with its device exit, on a CPU tensor the twin.  Their
 matmul stages (``_poly_polar``, the Newton-Schulz polishes) are plain
-torch, as they are plain XLA in JAX.
+torch, as they are plain XLA in JAX.  Every ``jacobi_core`` call counts in
+``CORE_SVD_CALLS`` and adds the time of its five stages into
+``CORE_STAGES`` (CUDA events on a card, no host read); its core's sweeps
+count in ``sweep_counter`` as every kernel-1 sweep does.
 
 ``jacobi_svd`` has two kernel-2 variants (``_orthogonalize_v``): one matrix
 whose X and W fit in one SM's shared memory (``_resident_fits``: complex64
@@ -65,6 +68,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import StageClock
+
 # kernel-1 launches on a CUDA tensor, of either variant (max_sweeps per
 # jacobi_sv call: the launches after the exit return at once), and of each
 # variant; the twin never counts
@@ -87,6 +92,9 @@ V_KERNEL_LAUNCHES = 0
 V_RESIDENT_LAUNCHES = 0
 # jacobi_svd calls that ran the sweep loop on a CUDA tensor
 CUDA_SVD_CALLS = 0
+# calls of the core-matrix projected SVD (jacobi_core and its plain
+# version) on any device; the time of its stages goes into CORE_STAGES
+CORE_SVD_CALLS = 0
 
 # shared memory one block can use on Hopper (sm_90)
 SHARED_BYTES_PER_BLOCK = 232448
@@ -836,8 +844,16 @@ def jacobi_proj_plain(theta: torch.Tensor, k: int, max_sweeps: int | None = None
                         polish_b_iters, polish_iters, _plain_sweep_loop)
 
 
+# the stages of jacobi_core, timed on every call (``CORE_STAGES``): the two
+# polar factors, the core product, the core's sweep loop with its sort, and
+# V = Z Vk with its polish and the discarded weight
+CORE_STAGE_NAMES = ("polar_w", "polar_z", "core", "sweeps", "v_polish")
+CORE_STAGES = StageClock(CORE_STAGE_NAMES)
+
+
 def _jacobi_core(theta, k, q_iters, c_iters, max_sweeps, tol, polish_iters,
                  quintic_precision, polish_adaptive, loop):
+    global CORE_SVD_CALLS
     f64 = theta.dtype == torch.complex128
     if q_iters is None:
         q_iters = 16 if f64 else 10
@@ -850,19 +866,28 @@ def _jacobi_core(theta, k, q_iters, c_iters, max_sweeps, tol, polish_iters,
     if quintic_precision is None:
         quintic_precision = "highest"
     theta, lead, squeeze = _flat_batch(theta, k, "jacobi_core")
-    Q0 = _fixed_projection_basis(theta.shape[-1], k, theta.dtype, theta.device)
-    W = _poly_polar(theta @ Q0, q_iters, c_iters, quintic_precision)  # [B, m, k]
-    Z = _poly_polar(theta.mH @ W, q_iters, c_iters, quintic_precision)
-    K = W.mH @ (theta @ Z)                                # [B, k, k]
-    # the sweep runs on the columns of K^H: its rows are conj(K)
-    S, Vk = _cols_to_sv(_orthogonalize_columns(K.conj(), max_sweeps, tol, loop),
-                        polish=0)
-    V = Z @ Vk                                            # [B, n, k]
-    if polish_iters and polish_adaptive:
-        V = _ns_polish_adaptive(V, k, polish_iters, 1e-12 if f64 else 5e-6)
-    elif polish_iters:
-        V = _ns_polish(V, k, iters=polish_iters)
-    return _unflat(S, V, _discarded(theta, S), lead, squeeze)
+    CORE_SVD_CALLS += 1
+    with CORE_STAGES.run(theta.device) as mark:
+        Q0 = _fixed_projection_basis(theta.shape[-1], k, theta.dtype,
+                                     theta.device)
+        W = _poly_polar(theta @ Q0, q_iters, c_iters, quintic_precision)
+        mark("polar_w")                                   # W [B, m, k]
+        Z = _poly_polar(theta.mH @ W, q_iters, c_iters, quintic_precision)
+        mark("polar_z")
+        K = W.mH @ (theta @ Z)                            # [B, k, k]
+        mark("core")
+        # the sweep runs on the columns of K^H: its rows are conj(K)
+        S, Vk = _cols_to_sv(_orthogonalize_columns(K.conj(), max_sweeps, tol,
+                                                   loop), polish=0)
+        mark("sweeps")
+        V = Z @ Vk                                        # [B, n, k]
+        if polish_iters and polish_adaptive:
+            V = _ns_polish_adaptive(V, k, polish_iters, 1e-12 if f64 else 5e-6)
+        elif polish_iters:
+            V = _ns_polish(V, k, iters=polish_iters)
+        disc = _discarded(theta, S)
+        mark("v_polish")
+    return _unflat(S, V, disc, lead, squeeze)
 
 
 def jacobi_core(theta: torch.Tensor, k: int, q_iters: int | None = None,

@@ -324,7 +324,17 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
     spec's real dtype on ``device`` (or the mesh's devices).  Returns
     (traces, info): host numpy traces [R, n_periods+1, ...] (t=0 row
     prepended) and info with wall_time, chain_periods_per_second,
-    chi_pad_used, chi_escalations, n_rerun_periods.
+    chi_pad_used, chi_escalations, n_rerun_periods and ``state``.
+
+    ``info['state']``: the exit MPS [R, ...] at chi_pad_used, on its
+    device, of a run on one device (no mesh, or a mesh of one device in
+    one process); None otherwise.  At the cap a run continues from it:
+    ``evolve_floquet_scan(state, gates, n, tp, ref_state=psi0,
+    frame=spec.frame)`` per chunk of ``chunk_periods``, with ``gates`` =
+    ``make_floquet_gates(spec.J, h, taus, theta=spec.theta)`` in the
+    spec's dtypes, ``tp`` = ``spec.tp`` with ``svd_method`` =
+    ``cap_svd_method`` and ``psi0`` = ``product_state(basis,
+    chi=chi_pad_used)``, equals one longer run bit for bit.
 
     The JAX version floors chi at 16 on the TPU, because n = 2 chi < 32
     routes to the Gram/eigh SVD there; this port sends every even n to the
@@ -475,6 +485,8 @@ def evolve_batch_auto(h_fields, taus, basis_indices, spec: SweepSpec,
         "chi_pad_used": chi,
         "chi_escalations": escalations,
         "n_rerun_periods": n_rerun,
+        "state": (psi[0] if len(shards) == 1 and R == R_out
+                  and (mesh is None or mesh.world == 1) else None),
     }
     return traces, info
 

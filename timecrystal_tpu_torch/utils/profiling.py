@@ -6,13 +6,17 @@ nothing through its TPU tunnel; on CUDA a span ends after
 ``torch.cuda.synchronize`` of the device that holds the result, and on the
 CPU, where every torch call returns finished, the fence does nothing.
 ``device_trace`` wraps ``torch.profiler`` and writes a Chrome trace.
+``StageClock`` sums the time of named stages of a hot path without a
+host sync: CUDA events on a card, the host clock on the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from collections import deque
 from typing import Dict
 
 import torch
@@ -72,6 +76,87 @@ class PhaseTimer:
 
     def report(self) -> Dict[str, float]:
         return dict(self.spans)
+
+
+class StageClock:
+    """The time of named stages, summed over every pass through them.
+
+    clock = StageClock(("first", "second"))
+    with clock.run(x.device) as mark:
+        y = f(x)
+        mark("first")       # the stage from the pass's start to here
+        z = g(y)
+        mark("second")      # from the last mark to here
+    clock.seconds()  -> {"first": s, "second": s}
+
+    On a CUDA device a mark records a CUDA event on the current stream,
+    so a stage's time is the device time between two events and nothing
+    is read on the host; a stage is added to its sum once its closing
+    event has completed (``query``), at the end of a later pass or in
+    ``seconds``.  At most ``MAX_PENDING`` stages wait, so the memory stays
+    bounded: past that the oldest is waited for.  On the CPU, where every
+    torch call returns finished, a stage is the host clock's interval.
+    Passes may run in several threads (one per device of a mesh)."""
+
+    MAX_PENDING = 4096
+
+    def __init__(self, names):
+        self.names = tuple(names)
+        self._seconds = dict.fromkeys(self.names, 0.0)
+        self._pending: deque = deque()     # (name, start event, end event)
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def run(self, device):
+        device = torch.device(device)
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
+
+            def event():
+                e = torch.cuda.Event(enable_timing=True)
+                e.record(stream)
+                return e
+
+            last = event()
+
+            def mark(name: str) -> None:
+                nonlocal last
+                if name not in self._seconds:
+                    raise KeyError(f"no stage {name!r} in {self.names}")
+                end = event()
+                self._pending.append((name, last, end))
+                last = end
+        else:
+            t = time.perf_counter()
+
+            def mark(name: str) -> None:
+                nonlocal t
+                now = time.perf_counter()
+                with self._lock:
+                    self._seconds[name] += now - t
+                t = now
+        yield mark
+        self._fold(len(self._pending) - self.MAX_PENDING)
+
+    def _fold(self, must: int = 0) -> None:
+        """Adds the completed stages to the sums, oldest first, waiting for
+        the oldest ``must`` whether complete or not."""
+        with self._lock:
+            while self._pending:
+                name, start, end = self._pending[0]
+                if must > 0:
+                    end.synchronize()
+                elif not end.query():
+                    break
+                self._seconds[name] += start.elapsed_time(end) / 1e3
+                self._pending.popleft()
+                must -= 1
+
+    def seconds(self) -> Dict[str, float]:
+        """The summed seconds of every stage, after waiting for the stages
+        still on the device."""
+        self._fold(len(self._pending))
+        return dict(self._seconds)
 
 
 @contextlib.contextmanager
